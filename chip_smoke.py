@@ -10,27 +10,43 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device  — the card's name and power limit (nvidia-smi) and the device
    count; TF32 is switched off for convolutions and matrix products, so the
    whole run is f32 and comparable with the CPU path.
-2. build   — nvcc builds every kernel of the serving path from
-   ``gloria_tpu_torch/csrc`` for sm_90a into ``build/kernels/``.
-3. kernel  — each kernel against its plain PyTorch version on probes: the
-   serving shape with and without the no-attention sink, the eval and the
-   train word masks, caption lengths 0, 1 and W-2, and B, T above 128.
-4. slice   — the full-width model (ResNet-50 + BERT-base, 97 words, 224 px
+2. build   — nvcc builds every kernel of the serving and training paths
+   from ``gloria_tpu_torch/csrc`` for sm_90a into ``build/kernels/``, one
+   nvcc process per source, all started together.
+3. kernel  — each kernel against its plain PyTorch version on probes.  K1
+   (forward): the serving shape with and without the no-attention sink, the
+   eval and the train word masks, caption lengths 0, 1 and W-2, and B, T
+   above 128.  K2 (backward): the pretrain shape with and without the sink,
+   aggregations sum, mean and max, caption lengths 0, 1 and W-1 under the
+   train mask, and B, T above 128 at a narrower D.
+4. serve   — the full-width model (ResNet-50 + BERT-base, 97 words, 224 px
    crops upsampled to 299², D=768) built from a seed serves zero-shot
    requests through ``InferenceEngine.classify`` (1, 5 and 64 images), a
    ``DynamicBatcher`` and ``serve_http``'s ``POST /classify``; kernel launch
    counts are read around exactly this main-path run.  Its scores are held
    against the same model run on the CPU, where the local similarity is the
    plain version.
-5. kernels — each kernel again at the inputs the main path gave it: error
-   against the plain version, median time from CUDA events, the plain
-   version's time, and the bound computed from those inputs.
-6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+5. kernels — K1 again at the inputs the serving path gave it: error against
+   the plain version, median time from CUDA events, the plain version's
+   time, and the bound computed from those inputs.
+6. train   — the same model from seed 0, in train mode with BERT dropout
+   0.1 and the pretrain optimizer (Adam 0.5/0.999, coupled decay 1e-6,
+   clip 0.25, lr 5e-5), takes one warm-up step and then five
+   ``train_step``s on a synthetic batch of 48 pairs (97 tokens, 224² float
+   images); the launch counts are read around exactly those five steps.
+   Losses finite, every reached parameter and every running statistic
+   moved.  Step time and pairs/s from CUDA events, where the step's time
+   goes, and K1 and K2 at the inputs a step gave them.
+7. card vs CPU — one step's loss, gradient norm and every parameter's
+   gradient from the same weights and batch (8 pairs, dropout 0) on the
+   card (kernels, cuDNN) and on the CPU (plain versions, oneDNN).
+8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import base64
+import copy
 import io
 import json
 import statistics
@@ -48,6 +64,25 @@ H100_HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-3   # f32 both sides, summation order differs; sims are log-values of O(1-20)
 SLICE_TOL = 1e-3    # card (CUDA kernel, cuDNN convolutions) vs CPU (plain version, oneDNN)
 BATCH_TOL = 1e-3    # one image scored alone vs inside a batch of 64
+# K2 vs plain, per output, x its max|grad| (+1e-6): f32 both sides; the
+# summation order differs and the kernel adds the pairs' shares with atomics
+GRAD_TOL = 1e-3
+# card vs CPU train step (8 pairs, dropout 0): cuDNN and oneDNN sum the
+# convolutions in different orders, and train-mode BatchNorm amplifies that
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_NORM_RTOL = 1e-3
+STEP_GRAD_TOL = 1e-3  # per gradient tensor outside the ResNet, x its max|g| (+1e-6)
+# The ResNet's gradient in train mode is not smooth at f32 noise scale: ReLUs
+# near 0 flip when the forward moves by ~1e-6.  On the CPU in f64
+# (ResNet-18, 64 px; tests/test_torch_port_train.py, the "not smooth" test)
+# a 1e-6 relative move of the input moves single gradient entries by over
+# 10% of max|g|, whole tensors by 1.1% in relative L2.  Card vs CPU (H100, 700 W) the worst entry was 12.5% of its tensor's
+# max|g| and the worst relative L2 9.2e-3 (layer4.1.bn2.bias), so the
+# backbone is held per tensor in relative L2, at about 5x that.
+STEP_BACKBONE_L2_TOL = 5e-2
+BACKBONE = "img_encoder.model."
+TRAIN_BATCH = 48
+TRAIN_STEPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -90,6 +125,25 @@ def local_sim_bound(words, regions, mask) -> tuple[float, str]:
     nbytes = 4 * (words.numel() + regions.numel() + mask.numel() + B * T)
     t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def local_sim_bwd_bound(words, regions, mask, g) -> tuple[float, str]:
+    """Least time for these inputs: six products of 2·S·D operations per
+    valid word of every (image, text) pair (raw, the weighted context V,
+    ctx·Vᵀ, the two dregions terms, dwords) at the f32 peak; against the
+    inputs read once and both gradients written once at the HBM rate."""
+    T, W, D = words.shape
+    B, S, _ = regions.shape
+    valid = int((mask > 0).sum())  # sum over texts; every image pairs with every text
+    ops = 12 * S * D * B * valid
+    nbytes = 4 * (2 * words.numel() + 2 * regions.numel() + mask.numel() + g.numel())
+    t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def grad_err(got, ref) -> tuple[float, float]:
+    """(max abs error, its tolerance GRAD_TOL * max|ref| + 1e-6)."""
+    return float((got - ref).abs().max()), GRAD_TOL * float(ref.abs().max()) + 1e-6
 
 
 def smoke_config():
@@ -145,6 +199,240 @@ def phase_kernel_probes() -> float:
     return worst
 
 
+def pretrain_config(dropout: float):
+    """configs/chexpert_pretrain_config.yaml at full width: the model, BERT's
+    dropout, the optimizer and the clip."""
+    cfg = smoke_config()
+    cfg.model.text.bert_config.dropout_rate = dropout
+    cfg.train = {"batch_size": TRAIN_BATCH, "optimizer": {"name": "Adam", "weight_decay": 1e-6}}
+    cfg.lightning = {"trainer": {"lr": 5e-5, "gradient_clip_val": 0.25}}
+    return cfg
+
+
+def phase_bwd_probes() -> tuple[float, float]:
+    """Phase 3, K2; returns the largest error against the plain version and
+    the largest error / tolerance ratio."""
+    import torch
+
+    from gloria_tpu_torch.ops import gloria_loss, local_sim
+
+    rng = np.random.RandomState(1)
+    worst = worst_ratio = 0.0
+    probes = [  # name, agg, B, T, W, S, D
+        ("pretrain shape", "sum", 48, 48, 97, 361, 768),
+        ("pretrain shape, sink", "sum", 48, 48, 97, 362, 768),
+        ("mean", "mean", 48, 48, 97, 361, 768),
+        ("max, sink", "max", 48, 48, 97, 362, 768),
+        ("B, T > 128", "sum", 130, 136, 97, 362, 64),
+    ]
+    for name, agg, B, T, W, S, D in probes:
+        caps = rng.randint(23, 64, size=T)  # the synthetic batch's cap_len range
+        caps[:3] = [0, 1, W - 1]
+        words = torch.from_numpy(rng.randn(T, W, D).astype(np.float32)).cuda()
+        regions = torch.from_numpy(rng.randn(B, S, D).astype(np.float32)).cuda()
+        g = torch.from_numpy(rng.randn(B, T).astype(np.float32)).cuda()
+        mask = gloria_loss.make_word_mask(torch.from_numpy(caps).cuda(), W, "train")
+        dw, dr = local_sim.local_similarities_bwd(words, regions, mask, g, agg=agg)
+        torch.cuda.synchronize()
+        pw, pr = local_sim.local_similarities_bwd_plain(words, regions, mask, g, agg=agg)
+        check(bool(torch.isfinite(dw).all() and torch.isfinite(dr).all()),
+              f"local_sim_bwd output finite ({name})")
+        (ew, tw), (er, tr) = grad_err(dw, pw), grad_err(dr, pr)
+        worst = max(worst, ew, er)
+        worst_ratio = max(worst_ratio, ew / tw, er / tr)
+        log(f"[kernel] local_sim_bwd {name}: B={B} T={T} W={W} S={S} D={D} agg={agg} "
+            f"dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions max_abs_err={er:.3e} "
+            f"(tol {tr:.3e})")
+        check(ew <= tw and er <= tr, f"local_sim_bwd vs plain ({name})")
+        del words, regions, g, mask, dw, dr, pw, pr
+        torch.cuda.empty_cache()
+    return worst, worst_ratio
+
+
+def phase_train(card: str) -> dict:
+    """Phase 6: the pretrain step at full width; returns its numbers."""
+    import torch
+
+    from gloria_tpu_torch.data.synthetic import make_synthetic_batch
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.models.norm import BatchNorm2d
+    from gloria_tpu_torch.ops import gloria_loss, local_sim
+    from gloria_tpu_torch.training import optim, train
+
+    cfg = pretrain_config(dropout=0.1)
+    t0 = time.perf_counter()
+    model = init_gloria(cfg, seed=0)
+    model.img_encoder.to(memory_format=torch.channels_last)
+    opt = optim.make_optimizer(cfg, grad_clip=cfg.lightning.trainer.gradient_clip_val)
+    state = train.create_train_state(model, opt, seed=0, device="cuda")
+    train_step, _ = train.make_pretrain_steps(model, opt)
+    raw = make_synthetic_batch(batch_size=TRAIN_BATCH, num_tokens=97, imsize=224,
+                               vocab_size=28996, seed=0)
+    batch = train.to_device(raw, torch.device("cuda"))
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {}
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm2d):
+            stats[f"{name}.running_mean"], stats[f"{name}.running_var"] = m.running_mean, m.running_var
+    stats0 = {n: b.clone() for n, b in stats.items()}
+    state, _ = train_step(state, batch)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.model.vision.model_name} + BERT 12x768 (dropout 0.1), batch "
+        f"{TRAIN_BATCH} x 97 tokens, 224 px float images upsampled to 299; Adam, clip 0.25; "
+        f"init + warm-up step {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    local_sim.launches = local_sim.launches_bwd = 0  # ---- train path starts --------
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, m = train_step(state, batch)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    launches = (local_sim.launches, local_sim.launches_bwd)  # ---- train path ends --
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"[train] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+        check(all(np.isfinite(v) for v in vals.values()), f"train step {i + 1}: metrics finite")
+        check(vals["nonfinite_steps"] == 0, f"train step {i + 1}: no step skipped")
+    log(f"[train] launches over the {TRAIN_STEPS} steps: local_sim_fwd {launches[0]}, "
+        f"local_sim_bwd {launches[1]}")
+    check(launches == (TRAIN_STEPS, TRAIN_STEPS), "one K1 and one K2 launch per train step")
+    unmoved = [n for n, p in model.named_parameters()
+               if torch.equal(p, params0[n]) and not n.startswith("text_encoder.model.pooler.")]
+    check(not unmoved, f"every parameter the loss reaches moved; unmoved: {unmoved[:5]}")
+    still = [n for n, b in stats.items() if torch.equal(b, stats0[n])]
+    check(not still, f"every BatchNorm running statistic moved; unmoved: {still[:5]}")
+    del params0, stats0
+    log(f"[train] step {step_ms:.2f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} pairs/s, peak "
+        f"{peak_gb:.2f} GB allocated (CUDA events over {TRAIN_STEPS} steps) [{card}]")
+
+    # one more step, recording the inputs the step gives the two kernels
+    seen = {}
+    fwd, bwd = local_sim.local_similarities, local_sim.local_similarities_bwd
+
+    def record_fwd(words, regions, mask, **kw):
+        seen["fwd"] = (words, regions, mask, kw)
+        return fwd(words, regions, mask, **kw)
+
+    def record_bwd(words, regions, mask, g, **kw):
+        seen["bwd"] = (words, regions, mask, g, kw)
+        return bwd(words, regions, mask, g, **kw)
+
+    local_sim.local_similarities, local_sim.local_similarities_bwd = record_fwd, record_bwd
+    try:
+        state, _ = train_step(state, batch)
+    finally:
+        local_sim.local_similarities, local_sim.local_similarities_bwd = fwd, bwd
+    torch.cuda.synchronize()
+
+    out = {"step_ms": step_ms, "launches": launches, "peak_gb": peak_gb}
+    words, regions, mask, kw = seen["fwd"]
+    got = local_sim.local_similarities(words, regions, mask, **kw)
+    out["k1_err"] = float((got - local_sim.local_similarities_plain(words, regions, mask, **kw))
+                          .abs().max())
+    check(out["k1_err"] <= KERNEL_TOL, "local_sim_fwd vs plain at the train step's inputs")
+    out["k1_ms"] = cuda_ms(lambda: local_sim.local_similarities(words, regions, mask, **kw), 5)
+    out["k1_plain_ms"] = cuda_ms(
+        lambda: local_sim.local_similarities_plain(words, regions, mask, **kw), 2)
+    out["k1_bound_ms"], out["k1_bound_by"] = local_sim_bound(words, regions, mask)
+    valid = int(mask.sum())
+    log(f"[kernels] local_sim_fwd at the train step's inputs: B={regions.shape[0]} "
+        f"T={words.shape[0]} W={words.shape[1]} S={regions.shape[1]} D={words.shape[2]}, "
+        f"{valid} valid words; max_abs_err={out['k1_err']:.3e}; kernel {out['k1_ms']:.4f} ms, "
+        f"plain {out['k1_plain_ms']:.4f} ms, bound {out['k1_bound_ms']:.4f} ms "
+        f"({out['k1_bound_by']}) [{card}]")
+    words, regions, mask, g, kw = seen["bwd"]
+    dw, dr = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
+    pw, pr = local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw)
+    (ew, tw), (er, tr) = grad_err(dw, pw), grad_err(dr, pr)
+    check(ew <= tw and er <= tr, "local_sim_bwd vs plain at the train step's inputs")
+    out["k2_err"], out["k2_ratio"] = max(ew, er), max(ew / tw, er / tr)
+    del dw, dr, pw, pr
+    out["k2_ms"] = cuda_ms(lambda: local_sim.local_similarities_bwd(words, regions, mask, g, **kw),
+                           5)
+    out["k2_plain_ms"] = cuda_ms(
+        lambda: local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw), 2)
+    out["k2_bound_ms"], out["k2_bound_by"] = local_sim_bwd_bound(words, regions, mask, g)
+    log(f"[kernels] local_sim_bwd at the train step's inputs: {valid} valid words x "
+        f"{regions.shape[0]} images; dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions "
+        f"max_abs_err={er:.3e} (tol {tr:.3e}); kernel {out['k2_ms']:.4f} ms, plain "
+        f"{out['k2_plain_ms']:.4f} ms, bound {out['k2_bound_ms']:.4f} ms ({out['k2_bound_by']}) "
+        f"[{card}]")
+    del seen
+
+    # where a step's time goes: each part timed on its own, CUDA events
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.train()
+    imgs, caps = batch["imgs"], batch["cap_lens"]
+    parts = {
+        "image tower fwd": lambda: model.image_encoder_forward(imgs),
+        "text tower fwd": lambda: model.text_encoder_forward(
+            batch["caption_ids"], batch["attention_mask"], batch["token_type_ids"],
+            batch["word_assignment"], gen),
+        "forward + calc_loss": lambda: model.calc_loss(*model(batch, gen)[:4], caps),
+        "forward + calc_loss + backward": lambda: train.loss_and_grads(model, batch, gen),
+    }
+    out["parts"] = {name: cuda_ms(fn, 2, reps=3) for name, fn in parts.items()}
+    out["parts"]["whole train step"] = step_ms
+    log("[train] where a step goes (ms, each part timed alone): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["parts"].items()) + f"; K1 {out['k1_ms']:.2f}, "
+        f"K2 {out['k2_ms']:.2f} [{card}]")
+    del model, state, batch, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_card_vs_cpu() -> None:
+    """Phase 7: one step's loss, gradient norm and every gradient, card vs CPU."""
+    import torch
+
+    from gloria_tpu_torch.data.synthetic import make_synthetic_batch
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.training import optim, train
+
+    cfg = pretrain_config(dropout=0.0)
+    cpu_model = init_gloria(cfg, seed=0)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    raw = make_synthetic_batch(batch_size=8, num_tokens=97, imsize=224, vocab_size=28996, seed=1)
+    t0 = time.perf_counter()
+    gm, gg = train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")))
+    cm, cg = train.loss_and_grads(cpu_model, train.to_device(raw, torch.device("cpu")))
+    loss_err = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+    gn, cn = float(optim.global_norm(gg)), float(optim.global_norm(cg))
+    norm_err = abs(gn - cn) / cn
+    rows = []  # (max|diff| / tolerance, relative L2, max|diff|, max|g|, name)
+    for (name, _), a, b in zip(cpu_model.named_parameters(), gg, cg):
+        diff, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        rel_l2 = float((a.cpu() - b).norm() / b.norm()) if scale else 0.0
+        rows.append((diff / (STEP_GRAD_TOL * scale + 1e-6), rel_l2, diff, scale, name))
+    backbone = sorted((r for r in rows if r[4].startswith(BACKBONE)), key=lambda r: -r[1])
+    rest = sorted((r for r in rows if not r[4].startswith(BACKBONE)), reverse=True)
+    log(f"[card vs cpu] 8 pairs, dropout 0, one step ({time.perf_counter() - t0:.1f} s): loss "
+        f"{float(gm['loss']):.6f} vs {float(cm['loss']):.6f} (rel {loss_err:.2e}, tol "
+        f"{STEP_LOSS_RTOL}); grad_norm {gn:.5f} vs {cn:.5f} (rel {norm_err:.2e}, tol "
+        f"{STEP_GRAD_NORM_RTOL})")
+    log(f"[card vs cpu] {len(rest)} tensors outside the ResNet, worst by max|diff| / "
+        f"({STEP_GRAD_TOL} max|g| + 1e-6), tol 1:")
+    for ratio, rel_l2, diff, scale, name in rest[:3]:
+        log(f"[card vs cpu]   {name}: max|diff| {diff:.3e}, max|g| {scale:.3e}, ratio {ratio:.3f}, "
+            f"relative L2 {rel_l2:.2e}")
+    log(f"[card vs cpu] {len(backbone)} ResNet tensors, worst by relative L2 (tol "
+        f"{STEP_BACKBONE_L2_TOL}); worst max|diff| / max|g| "
+        f"{max(r[2] / max(r[3], 1e-30) for r in backbone):.2e}:")
+    for ratio, rel_l2, diff, scale, name in backbone[:3]:
+        log(f"[card vs cpu]   {name}: relative L2 {rel_l2:.2e}, max|diff| {diff:.3e}, max|g| "
+            f"{scale:.3e}")
+    check(loss_err <= STEP_LOSS_RTOL, "card loss agrees with the CPU's")
+    check(norm_err <= STEP_GRAD_NORM_RTOL, "card grad_norm agrees with the CPU's")
+    check(rest[0][0] <= 1.0, "every gradient outside the ResNet agrees with the CPU's")
+    check(backbone[0][1] <= STEP_BACKBONE_L2_TOL, "every ResNet gradient agrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -171,7 +459,7 @@ def main() -> int:
         f"cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False (f32 throughout)")
 
     # ---- 2. build ---------------------------------------------------------
-    built = cuda_build.build(["local_sim_fwd"])
+    built = cuda_build.build(["local_sim_fwd", "local_sim_bwd"])
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -179,6 +467,7 @@ def main() -> int:
 
     # ---- 3. kernel probes ---------------------------------------------------
     worst_err = phase_kernel_probes()
+    bwd_err, bwd_ratio = phase_bwd_probes()
 
     # ---- 4. slice: the main path at full width ----------------------------
     cfg = smoke_config()
@@ -303,16 +592,38 @@ def main() -> int:
         f"computes this function [{card}]")
     log(f"[kernels] where classify(64) goes: {classify_ms:.2f} ms in all, image tower "
         f"{tower_ms:.2f} ms, local_sim_fwd {k_ms:.3f} ms [{card}]")
+    del engine, gm, padded, img_l, words, regions, mask, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- 6. train: the pretrain step at full width -------------------------
+    tr = phase_train(card)
+    worst_err = max(worst_err, tr["k1_err"])
+    bwd_err, bwd_ratio = max(bwd_err, tr["k2_err"]), max(bwd_ratio, tr["k2_ratio"])
+
+    # ---- 7. card vs CPU: one step's gradients -------------------------------
+    phase_card_vs_cpu()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 6. result lines --------------------------------------------------
+    # ---- 8. result lines --------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_fwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
-        "launches": main_path_launches, "max_abs_err": worst_err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches": main_path_launches + tr["launches"][0],
+        "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0]},
+        "max_abs_err": worst_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "train_ms": tr["k1_ms"], "train_plain_ms": tr["k1_plain_ms"],
+        "train_bound_ms": tr["k1_bound_ms"],
+    }, {
+        "name": "local_sim_bwd", "route": "cuda",
+        "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
+        "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
+        "launches": tr["launches"][1], "launches_by_path": {"train": tr["launches"][1]},
+        "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
+        "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
+        "bound_by": tr["k2_bound_by"], "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

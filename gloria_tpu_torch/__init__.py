@@ -3,8 +3,11 @@
 It mirrors ``gloria_tpu``'s layout and keeps its public layouts (images
 ``[B, H, W, 3]``, region embeddings ``[B, R, D]``, word embeddings
 ``[T, W, D]``).  It imports ``torch`` and never JAX, flax or ``gloria_tpu``.
-This slice serves zero-shot classification: ``api.load_gloria``,
-``api.GloriaModel``, ``serving.InferenceEngine`` and
-``python -m gloria_tpu_torch.serving --ckpt <file.ckpt>``.  The local
-similarity runs as the hand-written CUDA kernel ``csrc/local_sim_fwd.cu``.
+It serves zero-shot classification (``api.load_gloria``,
+``api.GloriaModel``, ``serving.InferenceEngine``,
+``python -m gloria_tpu_torch.serving --ckpt <file.ckpt>``) and takes GLoRIA
+pretrain steps (``training.optim.make_optimizer``,
+``training.train.make_pretrain_steps``).  The local similarity runs as the
+hand-written CUDA kernels ``csrc/local_sim_fwd.cu`` (forward) and
+``csrc/local_sim_bwd.cu`` (backward).
 """

@@ -28,6 +28,7 @@ from .data.tokenizer import TextProcessor, WordPieceTokenizer, load_tokenizer
 from .data.transforms import build_transformation, letterbox_resize, to_rgb
 from .models.gloria_model import GLoRIA
 from .ops import gloria_loss
+from .utils.device import resolve_device
 
 # the reference seeds these at import for prompt sampling; so does the JAX
 # package, so both packages sample the same prompts
@@ -45,15 +46,6 @@ EVAL_TEMP2 = 5.0
 
 def available_models() -> list[str]:
     return list(_MODELS.keys())
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → the CUDA card, or an error when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available: pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 class GloriaModel:

@@ -41,7 +41,8 @@
 // f32 inputs are 79 MB, 0.02 ms at 3.35 TB/s.  chip_smoke.py computes the
 // bound from each run's own mask.
 // Launches: one per InferenceEngine.classify chunk of at most max_batch
-// images, one per class in GloriaModel.zero_shot_classification.  No single
+// images, one per class in GloriaModel.zero_shot_classification, and one per
+// GLoRIA train or eval step (the local loss's similarity matrix).  No single
 // PyTorch call computes this function, so it has no library yardstick.
 
 #include <cuda_runtime.h>

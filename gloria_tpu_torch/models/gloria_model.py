@@ -1,6 +1,6 @@
-"""GLoRIA core model: the two encoders and the optional grounding extras.
+"""GLoRIA core model: the two encoders, the optional grounding extras, the loss.
 
-Port of the eval half of ``gloria_tpu.models.gloria_model.GLoRIA``:
+Port of ``gloria_tpu.models.gloria_model.GLoRIA``:
 
 - text encoder (BERT, last-4-layer aggregation) and image encoder (ResNet
   with the layer3 local-feature tap);
@@ -9,13 +9,17 @@ Port of the eval half of ``gloria_tpu.models.gloria_model.GLoRIA``:
 - optional post-LN transformer encoder over the flattened local features;
 - optional learnable no-attention sink vector ``no_attn_vec``;
 - the uint8 input branch: raw pixels (C=3, or C=1 broadcast to 3) are
-  normalized on the device in f32, exactly as the host pipeline does.
+  normalized on the device in f32, exactly as the host pipeline does;
+- ``calc_loss``: the weighted local, global and no-attention terms.
+
+``train()`` / ``eval()`` switch BatchNorm between batch and running
+statistics and BERT's dropout on and off; train-mode dropout draws from the
+``generator`` given to ``forward``.
 
 Module names follow the reference's torch keys (``img_encoder.model.*``,
 ``text_encoder.model.*``, ``position_embeddings.image_position_embeddings``,
 ``image_transformer.layers.{i}``, ``no_attn_vec``), so a reference state
-dict with ``gloria.`` stripped loads with ``strict=True``.  ``calc_loss``
-comes with the training slice.
+dict with ``gloria.`` stripped loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch import nn
 
 from ..configs import Config
 from ..data.transforms import norm_constants
+from ..ops import gloria_loss
 from .bert import BertConfig
 from .resnet import BasicBlock, Bottleneck
 from .text_model import TextEncoder
@@ -58,7 +63,8 @@ class PositionEmbeddings2D(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-LN layer with ``nn.TransformerEncoderLayer``'s key names
     (dim_feedforward=2048, relu).  LayerNorm eps is 1e-6, the flax default
-    the JAX package uses; eval only, so no dropout."""
+    the JAX package uses.  It has no dropout: the port does not train it yet
+    (``training.train.make_pretrain_steps`` refuses such a config)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int = 2048):
         super().__init__()
@@ -102,6 +108,7 @@ class GLoRIA(nn.Module):
         for node in ("text", "vision", "gloria"):
             if cfg.model[node] is None:
                 cfg.model[node] = Config()
+        self.cfg = cfg
         dim = cfg.model.text.embedding_dim or 768
         self.text_encoder = TextEncoder(
             bert_config_from_cfg(cfg),
@@ -144,24 +151,65 @@ class GLoRIA(nn.Module):
             img_emb_l = self.image_transformer(img_emb_l)
         return img_emb_l, img_emb_g, (h, w)
 
-    def text_encoder_forward(self, caption_ids, attention_mask, token_type_ids, word_assignment):
-        return self.text_encoder(caption_ids, attention_mask, token_type_ids, word_assignment)
+    def text_encoder_forward(self, caption_ids, attention_mask, token_type_ids, word_assignment,
+                             generator=None):
+        return self.text_encoder(caption_ids, attention_mask, token_type_ids, word_assignment,
+                                 generator)
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, generator: torch.Generator | None = None):
         """batch keys: imgs [B,H,W,3], caption_ids/attention_mask/token_type_ids
         [B,T], word_assignment [B,W,T].  Returns the embedding 4-tuple + grid."""
         img_emb_l, img_emb_g, grid = self.image_encoder_forward(batch["imgs"])
         text_emb_l, text_emb_g = self.text_encoder_forward(
             batch["caption_ids"], batch["attention_mask"], batch["token_type_ids"],
-            batch.get("word_assignment"))
+            batch.get("word_assignment"), generator)
         return img_emb_l, img_emb_g, text_emb_l, text_emb_g, grid
+
+    def calc_loss(self, img_emb_l, img_emb_g, text_emb_l, text_emb_g, cap_lens,
+                  segmentation_labels=None):
+        """Weighted multi-term loss.  Returns (loss, metrics dict, attn [B, W, R]).
+
+        Ported: the local InfoNCE pair (its similarity matrix through the
+        local-similarity kernels on a card), the global pair, and the
+        no-attention term.  The attention-supervision and flat-attention
+        ablation losses are not, and configs that ask for them raise."""
+        g = self.cfg.model.gloria
+        for key in ("attention_divergence_loss_weight", "attention_entropy_loss_weight"):
+            if g[key] is not None:
+                raise NotImplementedError(
+                    f"model.gloria.{key}: the flat-attention ablation losses are not ported yet "
+                    "(queued in ROADMAP.md A1)")
+        if segmentation_labels is not None and g.segmentation_loss_weight:
+            raise NotImplementedError(
+                "model.gloria.segmentation_loss_weight: the attention-supervision loss is not "
+                "ported yet (queued in ROADMAP.md A1)")
+        local_w = 1.0 if g.local_loss_weight is None else g.local_loss_weight
+        global_w = 1.0 if g.global_loss_weight is None else g.global_loss_weight
+        temp3 = g.temp3 or 10.0
+        l0, l1, no_attn_l, attn = gloria_loss.local_loss(
+            img_emb_l, text_emb_l, cap_lens, temp1=g.temp1 or 4.0, temp2=g.temp2 or 5.0,
+            temp3=temp3, sink=self.no_attn_vec, no_attn_loss_weight=g.no_attn_loss_weight)
+        loss = 0.0
+        metrics = {"local_loss0": l0, "local_loss1": l1}
+        if local_w != 0:
+            loss = loss + (l0 + l1) * local_w
+        if global_w != 0:
+            g0, g1 = gloria_loss.global_loss(img_emb_g, text_emb_g, temp3=temp3)
+            metrics.update(global_loss0=g0, global_loss1=g1)
+            loss = loss + (g0 + g1) * global_w
+        if g.no_attn_loss_weight is not None:
+            metrics["no_attn_loss"] = no_attn_l
+        loss = loss + no_attn_l
+        metrics["loss"] = loss
+        return loss, metrics, attn
 
 
 @torch.no_grad()
 def init_gloria(cfg: Config, seed: int = 0) -> GLoRIA:
     """A GLoRIA with random weights drawn from ``torch.Generator(seed)``.
 
-    The init keeps activations finite and O(1) at full depth with eval-mode
+    ``no_grad`` covers the init only: the returned model (in train mode, the
+    ``nn.Module`` default) trains as it is.  The init keeps activations finite and O(1) at full depth with eval-mode
     BatchNorm (identity running stats): He-normal convolutions, and the last
     BatchNorm of every residual branch scaled to 0.25 so the residual sums
     grow slowly; BERT-style N(0, 0.02) for dense layers and embeddings."""

@@ -3,7 +3,9 @@
 Port of ``gloria_tpu.models.resnet``: the same blocks, strides and
 BatchNorm placement (stride on the 3×3 conv of a Bottleneck), with
 torchvision's module names (``layer1.0.conv1``, ``layer1.0.downsample.0``)
-so reference state dicts load as they are.  One pass returns both the pooled
+so reference state dicts load as they are.  BatchNorm is the port's own
+(``norm.BatchNorm2d``): ``train()`` and ``eval()`` switch it between batch
+and running statistics.  One pass returns both the pooled
 layer4 feature and the layer3 local-feature map.  Inputs are NCHW; the
 image encoder hands them over in ``channels_last`` memory.  DenseNet is not
 ported yet.
@@ -16,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .norm import FrozenBatchNorm2d
+from .norm import BatchNorm2d
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -30,10 +32,10 @@ class BasicBlock(nn.Module):
                  groups: int = 1, base_width: int = 64):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride), FrozenBatchNorm2d(planes))
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride), BatchNorm2d(planes))
                            if downsample else None)
 
     def forward(self, x):
@@ -52,12 +54,12 @@ class Bottleneck(nn.Module):
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * self.expansion
         self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = FrozenBatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = _conv(width, width, 3, stride, groups)
-        self.bn2 = FrozenBatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = _conv(width, out, 1)
-        self.bn3 = FrozenBatchNorm2d(out)
-        self.downsample = (nn.Sequential(_conv(inplanes, out, 1, stride), FrozenBatchNorm2d(out))
+        self.bn3 = BatchNorm2d(out)
+        self.downsample = (nn.Sequential(_conv(inplanes, out, 1, stride), BatchNorm2d(out))
                            if downsample else None)
 
     def forward(self, x):
@@ -76,7 +78,7 @@ class ResNet(nn.Module):
                  width_per_group: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = 64, 64
         for stage, num_blocks in enumerate(layers):

@@ -33,10 +33,11 @@ class TextEncoder(nn.Module):
         self.norm = norm
         self.agg_tokens = agg_tokens
 
-    def forward(self, caption_ids, attention_mask, token_type_ids, word_assignment=None):
+    def forward(self, caption_ids, attention_mask, token_type_ids, word_assignment=None,
+                generator=None):
         """[B, T] ids/masks (+ [B, W, T] assignment) → (word_emb [B, W, D],
-        sent_emb [B, D])."""
-        seq, pooled, states = self.model(caption_ids, attention_mask, token_type_ids)
+        sent_emb [B, D]).  ``generator`` feeds BERT's train-mode dropout."""
+        seq, pooled, states = self.model(caption_ids, attention_mask, token_type_ids, generator)
         if self.last_n_layers > 1:
             h = states[-self.last_n_layers:]
             h = h.sum(0) if self.aggregate_method == "sum" else h.mean(0)

@@ -1,6 +1,6 @@
-"""Fused pairwise word-region similarity: CUDA kernel wrapper + plain version.
+"""Fused pairwise word-region similarity: CUDA kernel wrappers + plain versions.
 
-Port of ``gloria_tpu/ops/pallas/local_sim.py``'s forward.  For words
+Port of ``gloria_tpu/ops/pallas/local_sim.py`` (forward and backward).  For words
 ``[T, W, D]``, regions ``[B, S, D]`` (sink, if any, already prepended as
 region 0) and a word mask ``[T, W]`` it returns the similarities ``[B, T]``
 (rows = images): the double softmax (words per region, then ×temp1 regions
@@ -15,8 +15,12 @@ and log of the sum / max / mean of ``exp(temp2 · cos)`` over valid words.
   math, unchunked).  The CPU tests and ``chip_smoke.py``'s comparison use
   it; on a card nothing else does.
 - ``launches`` counts kernel launches, and only those.
-- Forward only: an input that requires grad raises.  The backward kernel
-  and its ``autograd.Function`` come with the training slice.
+- :func:`local_similarities` is forward-only: an input that requires grad
+  raises.  :func:`fused_local_similarities` is the differentiable form, a
+  :class:`LocalSimilarities` ``autograd.Function``: the forward kernel, and
+  :func:`local_similarities_bwd` as its backward.  That wrapper launches
+  ``csrc/local_sim_bwd.cu`` on a CUDA tensor (counted in ``launches_bwd``)
+  or runs :func:`local_similarities_bwd_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,7 +38,11 @@ AGGREGATIONS = {"sum": 0, "max": 1, "mean": 2}
 MAX_ABS_TEMP1 = 80.0
 
 launches = 0
+launches_bwd = 0
 _launch_lock = threading.Lock()
+# the backward kernel walks the (image, text) pairs with this many resident
+# blocks per SM; each block owns a scratch slice (see csrc/local_sim_bwd.cu)
+BWD_BLOCKS_PER_SM = 2
 
 
 def _check(words, regions, word_mask, temp1, agg):
@@ -47,7 +55,8 @@ def _check(words, regions, word_mask, temp1, agg):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
         if x.requires_grad:
-            raise ValueError(f"{name} requires grad: local_similarities is forward-only")
+            raise ValueError(f"{name} requires grad: local_similarities is forward-only; "
+                             "fused_local_similarities is differentiable")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.device != words.device:
@@ -78,6 +87,57 @@ def local_similarities(words: torch.Tensor, regions: torch.Tensor, word_mask: to
     return _launch(words, regions, word_mask, float(temp1), float(temp2), agg)
 
 
+def local_similarities_bwd(words: torch.Tensor, regions: torch.Tensor, word_mask: torch.Tensor,
+                           g: torch.Tensor, *, temp1: float = 4.0, temp2: float = 5.0,
+                           agg: str = "sum") -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`local_similarities`: ``g = dL/dsims [B, T]`` →
+    ``(dwords [T, W, D], dregions [B, S, D])`` f32.  CUDA tensors → the
+    kernel; CPU tensors → the plain version."""
+    _check(words, regions, word_mask, temp1, agg)
+    B, T = regions.shape[0], words.shape[0]
+    if not isinstance(g, torch.Tensor) or g.dtype != torch.float32 or not g.is_contiguous():
+        raise TypeError("g must be a contiguous float32 torch.Tensor")
+    if tuple(g.shape) != (B, T) or g.device != words.device:
+        raise ValueError(f"g must be [B, T] = {(B, T)} on {words.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    if words.device.type == "cpu":
+        return local_similarities_bwd_plain(words, regions, word_mask, g, temp1=temp1,
+                                            temp2=temp2, agg=agg)
+    if words.device.type != "cuda":
+        raise ValueError(f"local_similarities_bwd runs on cuda or cpu tensors, got {words.device}")
+    return _launch_bwd(words, regions, word_mask, g, float(temp1), float(temp2), agg)
+
+
+class LocalSimilarities(torch.autograd.Function):
+    """Differentiable similarities [B, T]: :func:`local_similarities` forward,
+    :func:`local_similarities_bwd` backward.  Gradients flow to words and
+    regions in their own shapes and dtypes; the mask gets none."""
+
+    @staticmethod
+    def forward(ctx, words, regions, word_mask, temp1, temp2, agg):
+        w = words.detach().float().contiguous()
+        r = regions.detach().float().contiguous()
+        m = word_mask.detach().contiguous()
+        ctx.save_for_backward(w, r, m)
+        ctx.opts = dict(temp1=temp1, temp2=temp2, agg=agg)
+        ctx.dtypes = (words.dtype, regions.dtype)
+        return local_similarities(w, r, m, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, r, m = ctx.saved_tensors
+        dw, dr = local_similarities_bwd(w, r, m, g.float().contiguous(), **ctx.opts)
+        return dw.to(ctx.dtypes[0]), dr.to(ctx.dtypes[1]), None, None, None, None
+
+
+def fused_local_similarities(words: torch.Tensor, regions: torch.Tensor, word_mask: torch.Tensor,
+                             temp1: float = 4.0, temp2: float = 5.0,
+                             agg: str = "sum") -> torch.Tensor:
+    """Differentiable similarities [B, T] (rows = images) of words [T, W, D]
+    and regions [B, S, D] (sink already prepended) under word_mask [T, W]."""
+    return LocalSimilarities.apply(words, regions, word_mask, float(temp1), float(temp2), agg)
+
+
 @functools.cache
 def _library():
     from ..utils.cuda_build import build
@@ -91,6 +151,31 @@ def _library():
     return lib
 
 
+@functools.cache
+def _library_bwd():
+    from ..utils.cuda_build import build
+
+    lib = build(["local_sim_bwd"])["local_sim_bwd"].lib
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.local_sim_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, p]
+    lib.local_sim_bwd.restype = i
+    lib.local_sim_bwd_scratch_floats.argtypes = [i, i, i]
+    lib.local_sim_bwd_scratch_floats.restype = ctypes.c_size_t
+    lib.local_sim_bwd_error_string.argtypes = [i]
+    lib.local_sim_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _float_mask(word_mask):
+    return word_mask.float() if word_mask.dtype == torch.bool else word_mask
+
+
+def _max_valid(mask) -> int:
+    """The largest count of valid words over the texts: the kernels size
+    their buffers by it, at one device→host read per call."""
+    return int((mask > 0).sum(dim=1).max())
+
+
 def _launch(words, regions, word_mask, temp1, temp2, agg):
     global launches
     T, W, D = words.shape
@@ -98,10 +183,8 @@ def _launch(words, regions, word_mask, temp1, temp2, agg):
     out = torch.empty((B, T), dtype=torch.float32, device=words.device)
     if B == 0 or T == 0:
         return out
-    mask = word_mask.float() if word_mask.dtype == torch.bool else word_mask
-    # the kernel sizes its shared-memory buffer by the largest count of valid
-    # words over the texts: one device→host read per call
-    nw_cap = int((mask > 0).sum(dim=1).max())
+    mask = _float_mask(word_mask)
+    nw_cap = _max_valid(mask)
     lib = _library()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
@@ -113,6 +196,35 @@ def _launch(words, regions, word_mask, temp1, temp2, agg):
     with _launch_lock:
         launches += 1
     return out
+
+
+def _launch_bwd(words, regions, word_mask, g, temp1, temp2, agg):
+    global launches_bwd
+    T, W, D = words.shape
+    B, S, _ = regions.shape
+    # the kernel adds every pair's share into zeroed outputs with atomics
+    dwords = torch.zeros_like(words)
+    dregions = torch.zeros_like(regions)
+    if B == 0 or T == 0:
+        return dwords, dregions
+    mask = _float_mask(word_mask)
+    nw_cap = max(_max_valid(mask), 1)
+    sms = torch.cuda.get_device_properties(words.device).multi_processor_count
+    grid = min(B * T, BWD_BLOCKS_PER_SM * sms)
+    lib = _library_bwd()
+    scratch = torch.empty(grid * lib.local_sim_bwd_scratch_floats(S, D, nw_cap),
+                          dtype=torch.float32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = lib.local_sim_bwd(words.data_ptr(), regions.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                               dwords.data_ptr(), dregions.data_ptr(), scratch.data_ptr(), grid,
+                               B, T, S, W, D, nw_cap, temp1, temp2, AGGREGATIONS[agg], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"local_sim_bwd launch failed: {lib.local_sim_bwd_error_string(rc).decode()}")
+    with _launch_lock:
+        launches_bwd += 1
+    return dwords, dregions
 
 
 def local_similarities_plain(words: torch.Tensor, regions: torch.Tensor, word_mask: torch.Tensor,
@@ -146,3 +258,17 @@ def local_similarities_plain(words: torch.Tensor, regions: torch.Tensor, word_ma
     else:
         raise ValueError(f"unknown aggregation {agg!r}")
     return sims.clamp_min(EPS).log().T.contiguous()                   # [B, T]
+
+
+def local_similarities_bwd_plain(words: torch.Tensor, regions: torch.Tensor,
+                                 word_mask: torch.Tensor, g: torch.Tensor, *, temp1: float = 4.0,
+                                 temp2: float = 5.0,
+                                 agg: str = "sum") -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward in plain PyTorch: autograd through
+    :func:`local_similarities_plain` with upstream ``g`` [B, T]."""
+    with torch.enable_grad():
+        w = words.detach().float().requires_grad_()
+        r = regions.detach().float().requires_grad_()
+        sims = local_similarities_plain(w, r, word_mask, temp1=temp1, temp2=temp2, agg=agg)
+        dw, dr = torch.autograd.grad(sims, (w, r), grad_outputs=g.float())
+    return dw, dr

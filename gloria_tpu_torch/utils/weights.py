@@ -1,4 +1,4 @@
-"""Weights bridge: JAX ``variables`` (nested numpy dicts) → the port's state dict.
+"""Weights bridge between JAX ``variables`` (nested numpy dicts) and the port's state dict.
 
 The port's own copy of the layout rules of
 ``gloria_tpu.utils.torch_export``: conv kernels HWIO → OIHW, dense kernels
@@ -7,6 +7,9 @@ stats, and flax multi-head attention's per-head kernels packed into
 ``in_proj_weight``.  The keys are the reference's torch keys without the
 ``gloria.`` prefix, so the result loads into
 :class:`gloria_tpu_torch.models.gloria_model.GLoRIA` with ``strict=True``.
+:func:`batch_stats_from_state_dict` takes the BatchNorm running statistics
+the other way, so a model trained in the port hands its ``batch_stats``
+back in the JAX layout.
 """
 
 from __future__ import annotations
@@ -139,3 +142,30 @@ def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     if "no_attn_vec" in params:
         out["no_attn_vec"] = _np(params["no_attn_vec"])
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # owned, writable copies
+
+
+def batch_stats_from_state_dict(state_dict: dict) -> dict:
+    """The port's BatchNorm running statistics → JAX ``batch_stats``
+    (``{"img_encoder": {"backbone": {"bn1": {"mean", "var"}, "layer1_0":
+    {"bn1": ..., "downsample_bn": ...}, ...}}}``, numpy f32): the inverse of
+    :func:`state_dict_from_jax`'s BatchNorm rule."""
+    prefix, suffix = "img_encoder.model.", ".running_mean"
+    backbone: dict = {}
+    for key, mean in state_dict.items():
+        if not (key.startswith(prefix) and key.endswith(suffix)):
+            continue
+        path = key[len(prefix):-len(suffix)]  # bn1 | layer1.0.bn2 | layer1.0.downsample.1
+        parts = path.split(".")
+        if len(parts) == 1:
+            node = backbone.setdefault(parts[0], {})
+        else:
+            block = backbone.setdefault(f"{parts[0]}_{parts[1]}", {})
+            node = block.setdefault("downsample_bn" if parts[2] == "downsample" else parts[2], {})
+        # copies: a state dict's tensors share the live buffers' memory
+        node["mean"] = mean.detach().cpu().numpy().astype(np.float32, copy=True)
+        node["var"] = (state_dict[f"{prefix}{path}.running_var"].detach().cpu().numpy()
+                       .astype(np.float32, copy=True))
+    if not backbone:
+        raise ValueError("the state dict carries no BatchNorm running statistics under "
+                         f"{prefix!r}")
+    return {"img_encoder": {"backbone": backbone}}

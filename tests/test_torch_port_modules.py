@@ -139,6 +139,7 @@ def test_resnet_matches_jax(name, pixels):
     model, _, _ = make_backbone(name)
     sd = weights.resnet_state_dict(variables["params"], stats)
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
+    model.eval()  # running statistics, as the JAX apply without train=True
     with torch.no_grad():
         pooled, local = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     _close(pooled.numpy(), ref_pooled, TOWER_TOL)
@@ -166,6 +167,7 @@ def test_bert_matches_jax():
     model = BertModel(BertConfig(**cfg))
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in weights.bert_state_dict(params).items()},
                           strict=True)
+    model.eval()  # no dropout, as the JAX apply's deterministic default
     with torch.no_grad():
         got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask).long(),
                     torch.from_numpy(types).long())
@@ -188,6 +190,7 @@ def test_text_encoder_matches_jax():
     model = TextEncoder(BertConfig(**cfg), agg_tokens=True)
     sd = {f"model.{k}": torch.from_numpy(np.array(v)) for k, v in weights.bert_state_dict(params["bert"]).items()}
     model.load_state_dict(sd, strict=True)
+    model.eval()  # no dropout, as the JAX apply's deterministic default
     with torch.no_grad():
         got_w, got_s = model(torch.from_numpy(ids).long(), torch.from_numpy(mask).long(),
                              torch.from_numpy(types).long(), torch.from_numpy(assign))
