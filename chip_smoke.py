@@ -76,10 +76,11 @@ STEP_GRAD_TOL = 1e-3  # per gradient tensor outside the ResNet, x its max|g| (+1
 # near 0 flip when the forward moves by ~1e-6.  On the CPU in f64
 # (ResNet-18, 64 px; tests/test_torch_port_train.py, the "not smooth" test)
 # a 1e-6 relative move of the input moves single gradient entries by over
-# 10% of max|g|, whole tensors by 1.1% in relative L2.  Card vs CPU (H100, 700 W) the worst entry was 12.5% of its tensor's
-# max|g| and the worst relative L2 9.2e-3 (layer4.1.bn2.bias), so the
-# backbone is held per tensor in relative L2, at about 5x that.
-STEP_BACKBONE_L2_TOL = 5e-2
+# 10% of max|g|, whole tensors by 1.1% in relative L2.  Card vs CPU (H100,
+# 700 W) the worst entry was 12.5% of its tensor's max|g| and the worst
+# relative L2 9.2e-3 (layer4.1.bn2.bias), so the backbone is held per tensor
+# in relative L2, at about 3x that.
+STEP_BACKBONE_L2_TOL = 3e-2
 BACKBONE = "img_encoder.model."
 TRAIN_BATCH = 48
 TRAIN_STEPS = 5
@@ -112,33 +113,40 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def local_sim_bound(words, regions, mask) -> tuple[float, str]:
-    """Least time for these inputs: the two products the kernel must do
-    (region·word logits, then the attention-weighted context), counted over
-    the valid words only, at the f32 peak; against every input read once and
-    the output written once at the HBM rate.  Softmax and exp work (under 2%
-    of the operations) is left out."""
-    T, W, D = words.shape
-    B, S, _ = regions.shape
-    valid = int((mask > 0).sum())
-    ops = 2 * 2 * B * S * D * valid
-    nbytes = 4 * (words.numel() + regions.numel() + mask.numel() + B * T)
+def _ops_bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def local_sim_bound(words, regions, mask) -> tuple[float, str]:
+    """Least time for these inputs: the products of the cheaper of two
+    routes, counted over the valid words of every (image, text) pair, at the
+    f32 peak; against every input read once and the output written once at
+    the HBM rate.  Direct route (K1's): raw and the weighted context V,
+    4·S·D per valid word of each pair.  Gram route (the TPU kernel's): raw
+    and G·a2 for ‖V‖², 2·S·D + 2·S² per valid word of each pair, plus the
+    Gram 2·S²·D per image.  Softmax and exp work (under 2% of the
+    operations) is left out."""
+    T, W, D = words.shape
+    B, S, _ = regions.shape
+    word_pairs = B * int((mask > 0).sum())  # every image pairs with every text
+    ops = min(4 * S * D * word_pairs, (2 * S * D + 2 * S * S) * word_pairs + 2 * S * S * D * B)
+    return _ops_bound(ops, 4 * (words.numel() + regions.numel() + mask.numel() + B * T))
 
 
 def local_sim_bwd_bound(words, regions, mask, g) -> tuple[float, str]:
-    """Least time for these inputs: six products of 2·S·D operations per
-    valid word of every (image, text) pair (raw, the weighted context V,
-    ctx·Vᵀ, the two dregions terms, dwords) at the f32 peak; against the
-    inputs read once and both gradients written once at the HBM rate."""
+    """Least time for these inputs, as :func:`local_sim_bound` for the
+    backward; against the inputs read once and both gradients written once.
+    Direct route (K2's): raw, V, ctx·Vᵀ, the two dregions terms and dwords,
+    12·S·D per valid word of each pair.  Gram route (the TPU kernel's): raw,
+    G·a2, dG = Σ dcn2·a2a2ᵀ, dregions and dwords, 6·S·D + 4·S² per valid
+    word of each pair, plus the Gram and (dG + dGᵀ)·ctx, 4·S²·D per image."""
     T, W, D = words.shape
     B, S, _ = regions.shape
-    valid = int((mask > 0).sum())  # sum over texts; every image pairs with every text
-    ops = 12 * S * D * B * valid
-    nbytes = 4 * (2 * words.numel() + 2 * regions.numel() + mask.numel() + g.numel())
-    t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    word_pairs = B * int((mask > 0).sum())
+    ops = min(12 * S * D * word_pairs, (6 * S * D + 4 * S * S) * word_pairs + 4 * S * S * D * B)
+    return _ops_bound(ops, 4 * (2 * words.numel() + 2 * regions.numel() + mask.numel()
+                                + g.numel()))
 
 
 def grad_err(got, ref) -> tuple[float, float]:

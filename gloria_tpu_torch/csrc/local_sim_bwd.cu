@@ -46,12 +46,17 @@
 //    b = p % B so the blocks in flight at one time mostly add into
 //    different images.
 //  * Everything is f32 on the CUDA cores: no tensor cores yet.
-// What bounds it on an H100: operations.  Six products of 2 S nv D per
-// pair, 12 S D sum_pairs nv: at the pretrain shape (B = T = 48, S = 361,
+// What bounds it on an H100: operations.  This kernel's six products cost
+// 12 S D per valid word of each pair.  The TPU kernel's Gram route costs less
+// when S < D: raw, G a2 and dG = sum_j dcn2 a2 a2^T per valid word of each
+// pair (6 S D + 4 S^2), and per image the Gram G = ctx ctx^T and
+// (dG + dG^T) ctx (4 S^2 D).  At the pretrain shape (B = T = 48, S = 361,
 // D = 768) the synthetic batch of seed 0 has sum_pairs nv = 48 sum_t nv_t =
-// 1.04e5, so 3.5e11 operations, 5.2 ms at the 67 TFLOP/s f32 peak.  The
-// bytes (inputs once, outputs once) are about 0.15 GB, 0.05 ms at
-// 3.35 TB/s.  chip_smoke.py computes the bound from each run's own mask.
+// 1.04e5, so the Gram route needs 2.46e11 operations, 3.67 ms at the
+// 67 TFLOP/s f32 peak (this kernel's route: 3.45e11).  The bytes (inputs
+// once, outputs once) are about 0.15 GB, 0.05 ms at 3.35 TB/s.
+// chip_smoke.py computes the bound from each run's own mask, by the cheaper
+// route.
 // Launches: one per GLoRIA train step (the backward of the local loss).
 // No single PyTorch call computes this function, so it has no library
 // yardstick.

@@ -38,8 +38,12 @@
 // 40.7) = 140 GFLOP, 2.1 ms at the 67 TFLOP/s f32 peak.  Over the valid
 // words only, this kernel's two products cost 2 * 2 * B * S * D * sum_t nv_t:
 // the CheXpert prompts hold sum_t nv_t = 185, so 13.2 GFLOP, 0.20 ms.  The
-// f32 inputs are 79 MB, 0.02 ms at 3.35 TB/s.  chip_smoke.py computes the
-// bound from each run's own mask.
+// f32 inputs are 79 MB, 0.02 ms at 3.35 TB/s.  With many valid words the
+// Gram route is the cheaper one (2 S D + 2 S^2 per valid word of each pair,
+// plus 2 S^2 D per image): at the pretrain shape (B = T = 48, S = 361, 2160
+// valid words) 9.41e10 operations, 1.40 ms, against 1.15e11 for this
+// kernel's route.  chip_smoke.py computes the bound from each run's own
+// mask, by the cheaper route.
 // Launches: one per InferenceEngine.classify chunk of at most max_batch
 // images, one per class in GloriaModel.zero_shot_classification, and one per
 // GLoRIA train or eval step (the local loss's similarity matrix).  No single

@@ -18,12 +18,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+# flax's BatchNorm momentum, the weight of the old running average; every
+# reference caller passes 0.9
+MOMENTUM = 0.9
+
 
 class BatchNorm2d(nn.Module):
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -39,7 +42,7 @@ class BatchNorm2d(nn.Module):
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
-            self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
-            self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+            self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)
+            self.running_var.copy_(MOMENTUM * self.running_var + (1 - MOMENTUM) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

@@ -4,10 +4,12 @@ Port of ``gloria_tpu.training.optim.make_optimizer``: the reference
 builder's Adam, AdamW and SGD, with gradient clipping by global norm and the
 skip-on-non-finite guard.  The update follows the optax chain step for step:
 
-1. guard: ``ok = isfinite(global_norm(grads))``; when not ok the gradients
-   are zeroed *before* the chain, so the moments still see the decay term;
+1. guard: ``ok = isfinite(norm)``, ``norm`` being the global norm of the
+   gradients, which the caller computes once; when not ok the gradients are
+   zeroed *before* the chain, so the moments still see the decay term;
 2. ``clip_by_global_norm``: ``g / norm * max_norm`` when ``norm >= max_norm``
-   (no ``+1e-6``, unlike ``torch.nn.utils.clip_grad_norm_``);
+   (no ``+1e-6``, unlike ``torch.nn.utils.clip_grad_norm_``); after the
+   guard the norm is ``where(ok, norm, 0)``;
 3. Adam: coupled decay ``g + wd·p``, then the moments (betas 0.5, 0.999,
    eps 1e-8, bias-corrected); AdamW: the moments (betas 0.9, 0.999), then
    ``+ wd·p``; SGD: ``g + wd·p``, then the momentum trace ``g + m·trace``;
@@ -68,16 +70,17 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor], state: OptState,
-               params: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The updates to add to ``params``; ``state`` moves one step in place."""
+    def update(self, grads: list[torch.Tensor], state: OptState, params: list[torch.Tensor],
+               norm: torch.Tensor) -> list[torch.Tensor]:
+        """The updates to add to ``params``; ``state`` moves one step in place.
+        ``norm`` is ``global_norm(grads)``."""
         g = list(grads)
         ok = None
         if self.skip_nonfinite:
-            ok = torch.isfinite(global_norm(g))
+            ok = torch.isfinite(norm)
             g = [torch.where(ok, x, torch.zeros_like(x)) for x in g]
+            norm = torch.where(ok, norm, torch.zeros_like(norm))
         if self.grad_clip:
-            norm = global_norm(g)
             small = norm < self.grad_clip
             g = [torch.where(small, x, x / norm * self.grad_clip) for x in g]
         wd = self.weight_decay

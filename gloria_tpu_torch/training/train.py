@@ -126,7 +126,7 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
         metrics, grads = loss_and_grads(
             model, b, generator=_dropout_generator(state.seed, state.step, device))
         metrics["grad_norm"] = global_norm(grads)
-        updates = optimizer.update(grads, state.opt_state, params)
+        updates = optimizer.update(grads, state.opt_state, params, metrics["grad_norm"])
         with torch.no_grad():
             torch._foreach_add_(params, updates)
             if old_stats is not None:
