@@ -9,10 +9,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — the card's name and power limit (nvidia-smi) and the device
    count; TF32 is switched off for convolutions and matrix products, so the
-   whole run is f32 and comparable with the CPU path.
-2. build   — nvcc builds every kernel of the serving and training paths
-   from ``gloria_tpu_torch/csrc`` for sm_90a into ``build/kernels/``, one
-   nvcc process per source, all started together.
+   whole run is f32 and comparable with the CPU path, and bf16 products sum
+   in f32 (no reduced-precision reductions).
+2. build   — nvcc builds every kernel (K1, K2 of the serving and training
+   paths; K3, K4 of the fused bottleneck tail) from ``gloria_tpu_torch/csrc``
+   for sm_90a into ``build/kernels/``, one nvcc process per source, all
+   started together.
 3. kernel  — each kernel against its plain PyTorch version on probes.  K1
    (forward): the serving shape with and without the no-attention sink, the
    eval and the train word masks, caption lengths 0, 1 and W-2, and B, T
@@ -40,7 +42,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. card vs CPU — one step's loss, gradient norm and every parameter's
    gradient from the same weights and batch (8 pairs, dropout 0) on the
    card (kernels, cuDNN) and on the CPU (plain versions, oneDNN).
-8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. fused tail — the archived fused bottleneck tail
+   (``gloria_tpu_torch.experiments.fused_bn``, which no model path calls):
+   hooks on the 16 Bottleneck ``conv2``s of one train-mode forward of the
+   ResNet-50 tower (seed 0, the synthetic batch of 48, 299 px) capture each
+   block's y2, its bn2 folded over the batch statistics and conv3's kernel;
+   ``bottleneck_tail`` + ``autograd.backward`` run K3 and K4 on all 16 with
+   cotangents from a seed, the launch counts read around exactly that run.
+   Every output is held against the plain version (``fused_bn.tail_errors``
+   / ``grad_errors``), on those tails and on probes (M = 1, M = 601, K and N
+   narrower than a tile, a channel whose z are all 0, gs1 = gs2 = 0,
+   gy3 = 0).  Per shape: kernel, plain version and cuBLAS's products alone,
+   from CUDA events, beside the bound; totals over the 16 tails.
+9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12  # tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-3   # f32 both sides, summation order differs; sims are log-values of O(1-20)
 SLICE_TOL = 1e-3    # card (CUDA kernel, cuDNN convolutions) vs CPU (plain version, oneDNN)
@@ -113,8 +128,30 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _ops_bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES_PER_S
+def device_ms(fn, names: tuple[str, ...], calls: int = 3) -> dict[str, float | None]:
+    """Device time per call of fn spent in the kernels whose names contain
+    each of ``names``, from torch.profiler's CUDA activity over ``calls``
+    calls after a warm-up; None for a name with no device time recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        us = getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0.0)
+        for name in names:
+            if name in event.key:
+                totals[name] += us / 1e3 / calls
+    return {name: (ms or None) for name, ms in totals.items()}
+
+
+def _ops_bound(ops: float, nbytes: float, peak: float = H100_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak, nbytes / H100_HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -441,6 +478,237 @@ def phase_card_vs_cpu() -> None:
     check(backbone[0][1] <= STEP_BACKBONE_L2_TOL, "every ResNet gradient agrees with the CPU's")
 
 
+def tail_bounds(M: int, K: int, N: int) -> tuple[tuple[float, str], tuple[float, str]]:
+    """Least times of K3 and K4 at one tail shape, bf16 operations at the
+    tensor-core peak against each input read once and each output written
+    once: K3 2·M·K·N operations; y2, scale, shift and w read, y3, s1 and s2
+    written.  K4 4·M·K·N; y2, scale, shift, w, y3, gy3, gs1 and gs2 read,
+    dy2, dscale, dshift and dW written."""
+    fwd = _ops_bound(2 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 2 * M * N + 8 * N,
+                     H100_BF16_FLOPS)
+    bwd = _ops_bound(4 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 4 * M * N + 8 * N
+                     + 2 * M * K + 8 * K + 4 * K * N, H100_BF16_FLOPS)
+    return fwd, bwd
+
+
+def capture_tails() -> list[tuple]:
+    """The 16 bottleneck tails of one train-mode forward of the full-width
+    ResNet-50 image tower on the synthetic batch of 48 (224 px upsampled to
+    299²): for each block, (name, y2, scale, shift, w) with y2 = conv2's
+    output [B·H·W, K] in bf16, scale / shift bn2 folded over that output's
+    batch statistics (as ``models/norm.py`` takes them), and w = conv3's
+    kernel [K, N].  Hooks on the blocks' conv2 read them; the model code is
+    not changed."""
+    import torch
+
+    from gloria_tpu_torch.data.synthetic import make_synthetic_batch
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.models.resnet import Bottleneck
+    from gloria_tpu_torch.training import train
+
+    model = init_gloria(pretrain_config(dropout=0.1), seed=0).cuda().train()
+    model.img_encoder.to(memory_format=torch.channels_last)
+    raw = make_synthetic_batch(batch_size=TRAIN_BATCH, num_tokens=97, imsize=224,
+                               vocab_size=28996, seed=0)
+    imgs = train.to_device(raw, torch.device("cuda"))["imgs"]
+    tails, hooks = [], []
+
+    def hook(name, block, _module, _inputs, out):
+        xf = out.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        scale = torch.rsqrt(var + block.bn2.eps) * block.bn2.weight
+        shift = block.bn2.bias - mean * scale
+        y2 = out.permute(0, 2, 3, 1).reshape(-1, out.shape[1]).to(torch.bfloat16).contiguous()
+        w = block.conv3.weight[:, :, 0, 0].t().contiguous()
+        tails.append((name, y2, scale.contiguous(), shift.contiguous(), w))
+
+    for name, block in model.img_encoder.model.named_modules():
+        if isinstance(block, Bottleneck):
+            hooks.append(block.conv2.register_forward_hook(
+                lambda m, i, o, name=name, block=block: hook(name, block, m, i, o)))
+    try:
+        with torch.no_grad():
+            model.image_encoder_forward(imgs)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    del model, imgs
+    torch.cuda.empty_cache()
+    return tails
+
+
+def phase_fused_tail(card: str) -> dict:
+    """Phase 8: K3 and K4 on the 16 bottleneck tails of one ResNet-50 train
+    step, held against the plain version, probed at edge shapes, and timed
+    per shape against the plain version, cuBLAS's products alone and the
+    bound."""
+    import torch
+
+    from gloria_tpu_torch.experiments import fused_bn
+
+    t0 = time.perf_counter()
+    tails = capture_tails()
+    check(len(tails) == 16, f"16 bottleneck tails captured, got {len(tails)}")
+    rng = np.random.RandomState(4)
+    gen = torch.Generator(device="cuda")
+    cots = []
+    for _, y2, _, _, w in tails:
+        M, N = y2.shape[0], w.shape[1]
+        gen.manual_seed(int(rng.randint(2 ** 31)))  # gy3 drawn on the card, in bulk
+        gy3 = torch.randn(M, N, generator=gen, device="cuda").to(torch.bfloat16)
+        gs1 = torch.from_numpy(rng.randn(N).astype(np.float32)).cuda()
+        gs2 = torch.from_numpy((rng.randn(N) * 0.1).astype(np.float32)).cuda()
+        cots.append((gy3, gs1, gs2))
+    leaves = [[t.clone().requires_grad_() for t in tail[1:]] for tail in tails]
+    torch.cuda.synchronize()
+    layers = {}  # layer -> (M, K, N, count of its tails)
+    for name, y2, _, _, w in tails:
+        layer = name.split(".")[0]
+        M, K, N, n = layers.get(layer, (*y2.shape, w.shape[1], 0))
+        layers[layer] = (M, K, N, n + 1)
+    log(f"[fused tail] captured {len(tails)} tails from one train-mode ResNet-50 forward at "
+        f"B={TRAIN_BATCH}, 299 px: " + ", ".join(
+            f"{layer} M={M} K={K} N={N} x{n}" for layer, (M, K, N, n) in layers.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+    outs = []
+    fused_bn.launches_fwd = fused_bn.launches_bwd = 0  # ---- fused-tail path starts ----
+    for lv, cot in zip(leaves, cots):
+        y3, s1, s2 = fused_bn.bottleneck_tail(*lv)
+        torch.autograd.backward((y3, s1, s2), cot)
+        outs.append((y3.detach(), s1.detach(), s2.detach()))
+    torch.cuda.synchronize()
+    launches = (fused_bn.launches_fwd, fused_bn.launches_bwd)  # ---- path ends ----
+    log(f"[fused tail] launches over the 16 tails: fused_bn_fwd {launches[0]}, "
+        f"fused_bn_bwd {launches[1]}")
+    check(launches == (16, 16), "one K3 and one K4 launch per tail")
+
+    worst = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+
+    def hold(kind, what, errors):
+        bad = {k: v for k, v in errors.items() if not v[1] <= 1.0}
+        for k, (err, ratio) in errors.items():
+            if k != "y3 differing":
+                worst[kind][0] = max(worst[kind][0], err)
+            worst[kind][1] = max(worst[kind][1], ratio)
+        check(not bad, f"{what}: {bad}")
+        name, (_, ratio) = max(errors.items(), key=lambda kv: kv[1][1])
+        return f"{ratio:.3f} ({name})"
+
+    for (name, y2, scale, shift, w), lv, out, cot in zip(tails, leaves, outs, cots):
+        args = (y2, scale, shift, w)
+        rf = hold("fwd", f"K3 vs plain on {name}",
+                  fused_bn.tail_errors(out, fused_bn.bottleneck_tail_plain(*args)))
+        ref = fused_bn.bottleneck_tail_bwd_plain(*args, out[0], *cot)
+        rb = hold("bwd", f"K4 vs plain on {name}",
+                  fused_bn.grad_errors([t.grad for t in lv], ref))
+        log(f"[fused tail] {name}: M={y2.shape[0]} K={y2.shape[1]} N={w.shape[1]}; worst "
+            f"error / tolerance K3 {rf}, K4 {rb}")
+        del ref
+    del leaves, outs
+
+    # probes: edge shapes from a numpy seed, and edge values on captured tails
+    prng = np.random.RandomState(5)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dtype)
+
+    def probe(name, args, cot):
+        got = fused_bn.bottleneck_tail_fwd(*args)
+        torch.cuda.synchronize()
+        rf = hold("fwd", f"K3 probe {name}",
+                  fused_bn.tail_errors(got, fused_bn.bottleneck_tail_plain(*args)))
+        grads = fused_bn.bottleneck_tail_bwd(*args, got[0], *cot)
+        torch.cuda.synchronize()
+        ref = fused_bn.bottleneck_tail_bwd_plain(*args, got[0], *cot)
+        rb = hold("bwd", f"K4 probe {name}", fused_bn.grad_errors(grads, ref))
+        M, K = args[0].shape
+        log(f"[fused tail] probe {name}: M={M} K={K} N={args[3].shape[1]}; worst error / "
+            f"tolerance K3 {rf}, K4 {rb}")
+        return got, grads
+
+    for name, M, K, N in (("M = 1", 1, 64, 256), ("M = 601", 601, 128, 512),
+                          ("K = 16, N = 32", 300, 16, 32), ("K = 24, N = 40", 601, 24, 40)):
+        args = (dev(prng.randn(M, K), torch.bfloat16), dev(prng.rand(K) + 0.5),
+                dev(prng.randn(K) * 0.2), dev(prng.randn(K, N) * 0.1))
+        probe(name, args, (dev(prng.randn(M, N), torch.bfloat16), dev(prng.randn(N)),
+                           dev(prng.randn(N) * 0.1)))
+    i = next(i for i, tail in enumerate(tails) if tail[0] == "layer2.0")
+    _, y2, scale, shift, w = tails[i]
+    gy3, gs1, gs2 = cots[i]
+    y2z, scz, shz = y2.clone(), scale.clone(), shift.clone()
+    y2z[:, 0] = y2z[:, 0].abs()
+    scz[0], shz[0] = -scz[0].abs() - 0.5, -shz[0].abs() - 0.1  # every z of channel 0 is 0
+    _, (dy2, dsc, dsh, _) = probe("channel 0 all zero (layer2.0)", (y2z, scz, shz, w),
+                                  (gy3, gs1, gs2))
+    check(bool((dy2[:, 0] == 0).all()) and float(dsc[0]) == 0.0 and float(dsh[0]) == 0.0,
+          "a channel with every z zero gets zero gradients")
+    probe("gs1 = gs2 = 0 (layer2.0)", (y2, scale, shift, w),
+          (gy3, torch.zeros_like(gs1), torch.zeros_like(gs2)))
+    probe("gy3 = 0 (layer2.0)", (y2, scale, shift, w), (torch.zeros_like(gy3), gs1, gs2))
+    del y2z, scz, shz
+
+    # time per shape: the first tail of each shape stands for its repeats
+    shapes = []
+    for i, (name, y2, scale, shift, w) in enumerate(tails):
+        if not name.endswith(".0"):
+            continue
+        M, K = y2.shape
+        N = w.shape[1]
+        args = (y2, scale, shift, w)
+        gy3, gs1, gs2 = cots[i]
+        y3 = fused_bn.bottleneck_tail_fwd(*args)[0]
+        z_bf = torch.relu(y2.float() * scale + shift).to(torch.bfloat16)
+        w_bf = w.to(torch.bfloat16)
+        g_bf = (gy3.float() + gs1 + 2.0 * y3.float() * gs2).to(torch.bfloat16)
+        (fb, fby), (bb, bby) = tail_bounds(M, K, N)
+        row = {
+            "layer": name.split(".")[0], "M": M, "K": K, "N": N,
+            "tails": layers[name.split(".")[0]][3],
+            "fwd_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_fwd(*args), 10),
+            "fwd_plain_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_plain(*args), 10),
+            "fwd_library_ms": cuda_ms(lambda: torch.matmul(z_bf, w_bf), 10),
+            "fwd_bound_ms": fb, "fwd_bound_by": fby,
+            "bwd_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2), 10),
+            "bwd_plain_ms": cuda_ms(
+                lambda: fused_bn.bottleneck_tail_bwd_plain(*args, y3, gy3, gs1, gs2), 10),
+            "bwd_library_ms": cuda_ms(
+                lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf)), 10),
+            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+        }
+        passes = device_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2),
+                           ("fused_bn_bwd_rows_kernel", "fused_bn_bwd_dw_kernel"))
+        row["bwd_rows_pass_ms"] = passes["fused_bn_bwd_rows_kernel"]
+        row["bwd_dw_pass_ms"] = passes["fused_bn_bwd_dw_kernel"]
+        shapes.append(row)
+        log(f"[fused tail] {row['layer']} M={M} K={K} N={N} (x{row['tails']}), ms per tail: "
+            f"K3 {row['fwd_ms']:.4f}, plain {row['fwd_plain_ms']:.4f}, cuBLAS product alone "
+            f"{row['fwd_library_ms']:.4f}, bound {fb:.4f} ({fby}); K4 {row['bwd_ms']:.4f}, plain "
+            f"{row['bwd_plain_ms']:.4f}, cuBLAS products alone {row['bwd_library_ms']:.4f}, "
+            f"bound {bb:.4f} ({bby}); K4's passes (torch.profiler device time): rows "
+            f"{row['bwd_rows_pass_ms']}, dW {row['bwd_dw_pass_ms']} [{card}]")
+        del z_bf, w_bf, g_bf, y3
+
+    out = {"launches": launches, "shapes": shapes, "worst": worst}
+    for key in ("fwd", "bwd"):
+        for col in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[f"{key}_{col}"] = sum(r["tails"] * r[f"{key}_{col}"] for r in shapes)
+        by_bytes = sum(r["tails"] * r[f"{key}_bound_ms"] for r in shapes
+                       if r[f"{key}_bound_by"] == "bytes")
+        out[f"{key}_bound_by"] = "bytes" if 2 * by_bytes >= out[f"{key}_bound_ms"] else "operations"
+    log(f"[fused tail] over the 16 tails of one step (ms): K3 {out['fwd_ms']:.4f}, plain "
+        f"{out['fwd_plain_ms']:.4f}, cuBLAS product alone {out['fwd_library_ms']:.4f}, bound "
+        f"{out['fwd_bound_ms']:.4f}; K4 {out['bwd_ms']:.4f}, plain {out['bwd_plain_ms']:.4f}, "
+        f"cuBLAS products alone {out['bwd_library_ms']:.4f}, bound {out['bwd_bound_ms']:.4f}; "
+        f"worst error / tolerance K3 {worst['fwd'][1]:.3f}, K4 {worst['bwd'][1]:.3f}; phase "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del tails, cots
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -462,12 +730,15 @@ def main() -> int:
     card = smi.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products (the fused tail's plain version) sum in f32, as its kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(card)
     log(f"[device] {kind}, {count} device(s), torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False (f32 throughout)")
+        f"cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False (f32 throughout), "
+        f"allow_bf16_reduced_precision_reduction=False")
 
     # ---- 2. build ---------------------------------------------------------
-    built = cuda_build.build(["local_sim_fwd", "local_sim_bwd"])
+    built = cuda_build.build(["local_sim_fwd", "local_sim_bwd", "fused_bn_fwd", "fused_bn_bwd"])
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -610,9 +881,12 @@ def main() -> int:
 
     # ---- 7. card vs CPU: one step's gradients -------------------------------
     phase_card_vs_cpu()
+
+    # ---- 8. fused tail: K3 and K4 on a ResNet-50 step's 16 bottleneck tails
+    ft = phase_fused_tail(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 8. result lines --------------------------------------------------
+    # ---- 9. result lines --------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
@@ -632,7 +906,23 @@ def main() -> int:
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "library_ms": None,
-    }]}))
+    }] + [{
+        "name": f"fused_bn_{key}", "route": "cuda",
+        "source": f"gloria_tpu_torch/csrc/fused_bn_{key}.cu",
+        "replaces": f"scripts/experiments/fused_bn.py:{line}",
+        "launches": launches, "launches_by_path": {"fused_tail": launches},
+        "max_abs_err": ft["worst"][key][0], "max_err_over_tol": ft["worst"][key][1],
+        "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
+        "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],
+        "library_ms": ft[f"{key}_library_ms"],
+        "library_call": "torch.matmul of the bf16 operands, the product"
+                        + ("s" if key == "bwd" else "") + " alone (cuBLAS)",
+        "over": "the 16 bottleneck tails of one ResNet-50 train step at B=48, 299 px",
+        "by_shape": [{k: r[k] for k in ("layer", "M", "K", "N", "tails")}
+                     | {k.removeprefix(f"{key}_"): r[k] for k in r if k.startswith(f"{key}_")}
+                     for r in ft["shapes"]],
+    } for key, line, launches in (("fwd", 94, ft["launches"][0]),
+                                  ("bwd", 124, ft["launches"][1]))]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -9,5 +9,7 @@ It serves zero-shot classification (``api.load_gloria``,
 pretrain steps (``training.optim.make_optimizer``,
 ``training.train.make_pretrain_steps``).  The local similarity runs as the
 hand-written CUDA kernels ``csrc/local_sim_fwd.cu`` (forward) and
-``csrc/local_sim_bwd.cu`` (backward).
+``csrc/local_sim_bwd.cu`` (backward).  ``experiments.fused_bn`` keeps the
+archived fused bottleneck tail, which no model path calls, with its CUDA
+kernels ``csrc/fused_bn_fwd.cu`` and ``csrc/fused_bn_bwd.cu``.
 """

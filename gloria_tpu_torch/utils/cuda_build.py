@@ -3,8 +3,9 @@
 Each ``gloria_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use with ``nvcc`` for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
+The library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is.  Nothing
 here runs at import: the CPU tests import every module of the port.
 """
 
@@ -60,7 +61,9 @@ def build(names: list[str]) -> dict[str, Built]:
             if name in _LOADED or name in pending:
                 continue
             src = CSRC / f"{name}.cu"
-            digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+            digest = hashlib.sha256(src.read_bytes() + headers
+                                    + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
             so = BUILD_DIR / f"{name}-{digest}.so"
             if so.exists():
                 log = so.with_suffix(".log")

@@ -12,13 +12,20 @@ versions, both sides f32 with TF32 off:
   the summation order differs (cuBLAS products against tiled sums);
 - backward (K2): 1e-3 · max|grad| + 1e-6 per output; the summation order
   differs, and the kernel adds the shares of the (image, text) pairs with
-  atomics in an order that changes from run to run.
+  atomics in an order that changes from run to run;
+- the fused bottleneck tail (K3 forward, K4 backward) against its plain
+  version, bf16 products with f32 sums on both sides (cuBLAS with
+  reduced-precision bf16 reductions off): the tolerances of
+  ``fused_bn.tail_errors`` and ``fused_bn.grad_errors`` (y3 within one bf16
+  ulp, at most 1e-3 of its entries differing; s1, s2 at 1e-4; dy2 at one
+  ulp of its largest entry; dscale, dshift, dW at 1e-3 of their largest).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gloria_tpu_torch.experiments import fused_bn
 from gloria_tpu_torch.ops import gloria_loss as tgl
 from gloria_tpu_torch.ops import local_sim
 
@@ -30,10 +37,11 @@ GRAD_TOL = 1e-3
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_tf32 = matmul.allow_bf16_reduced_precision_reduction = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 @pytest.mark.cuda
@@ -133,3 +141,62 @@ def test_fused_similarities_on_the_card_never_take_the_plain_path(card, monkeypa
     assert float((sims - ref).abs().max()) <= KERNEL_TOL
     for got, exp in ((w.grad, w_ref.grad), (r.grad, r_ref.grad)):
         assert float((got - exp).abs().max()) <= GRAD_TOL * float(exp.abs().max()) + 1e-6
+
+
+def _tail_inputs(card, M, K, N, seed):
+    """((y2, scale, shift, w), (gy3, gs1, gs2)) on the card from a numpy seed."""
+    rng = np.random.RandomState(seed)
+
+    def dev(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(card).to(dtype)
+
+    args = (dev(rng.randn(M, K), torch.bfloat16), dev(rng.rand(K) + 0.5), dev(rng.randn(K) * 0.2),
+            dev(rng.randn(K, N) * 0.1))
+    return args, (dev(rng.randn(M, N), torch.bfloat16), dev(rng.randn(N)), dev(rng.randn(N) * 0.1))
+
+
+def _assert_within(errors):
+    assert all(ratio <= 1.0 for _, ratio in errors.values()), errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (1, 16, 32), (48, 16, 32), (601, 24, 40), (600, 128, 128), (601, 128, 512),
+    (4800, 512, 2048),  # ResNet-50's layer-4 tail at B=48, 299 px
+])
+def test_fused_tail_kernels_match_plain(card, M, K, N):
+    args, (gy3, gs1, gs2) = _tail_inputs(card, M, K, N, seed=M + K + N)
+    before = (fused_bn.launches_fwd, fused_bn.launches_bwd)
+    got = fused_bn.bottleneck_tail_fwd(*args)
+    torch.cuda.synchronize()
+    _assert_within(fused_bn.tail_errors(got, fused_bn.bottleneck_tail_plain(*args)))
+    grads = fused_bn.bottleneck_tail_bwd(*args, got[0], gy3, gs1, gs2)
+    torch.cuda.synchronize()
+    assert (fused_bn.launches_fwd, fused_bn.launches_bwd) == (before[0] + 1, before[1] + 1)
+    ref = fused_bn.bottleneck_tail_bwd_plain(*args, got[0], gy3, gs1, gs2)
+    assert all(torch.isfinite(g).all() for g in grads)
+    _assert_within(fused_bn.grad_errors(grads, ref))
+
+
+@pytest.mark.cuda
+def test_fused_tail_on_the_card_never_takes_the_plain_path(card, monkeypatch):
+    """``bottleneck_tail`` forward and backward on CUDA tensors launch K3
+    once and K4 once, and agree with the plain versions computed before
+    they are forbidden."""
+    args, cots = _tail_inputs(card, 601, 128, 512, seed=11)
+    y3_ref = fused_bn.bottleneck_tail_plain(*args)
+    grads_ref = fused_bn.bottleneck_tail_bwd_plain(*args, y3_ref[0], *cots)
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fused_bn, "bottleneck_tail_plain", forbidden)
+    monkeypatch.setattr(fused_bn, "bottleneck_tail_bwd_plain", forbidden)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = (fused_bn.launches_fwd, fused_bn.launches_bwd)
+    outs = fused_bn.bottleneck_tail(*leaves)
+    torch.autograd.backward(outs, cots)
+    torch.cuda.synchronize()
+    assert (fused_bn.launches_fwd, fused_bn.launches_bwd) == (before[0] + 1, before[1] + 1)
+    _assert_within(fused_bn.tail_errors(outs, y3_ref))
+    _assert_within(fused_bn.grad_errors([a.grad for a in leaves], grads_ref))
