@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    eval and the train word masks, caption lengths 0, 1 and W-2, and B, T
    above 128.  K2 (backward): the pretrain shape with and without the sink,
    aggregations sum, mean and max, caption lengths 0, 1 and W-1 under the
-   train mask, and B, T above 128 at a narrower D.
+   train mask, B, T above 128 at a narrower D, and a batch whose captions
+   are all empty (no valid word: both gradients exactly 0).
 4. serve   — the full-width model (ResNet-50 + BERT-base, 97 words, 224 px
    crops upsampled to 299², D=768) built from a seed serves zero-shot
    requests through ``InferenceEngine.classify`` (1, 5 and 64 images), a
@@ -38,7 +39,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    images); the launch counts are read around exactly those five steps.
    Losses finite, every reached parameter and every running statistic
    moved.  Step time and pairs/s from CUDA events, where the step's time
-   goes, and K1 and K2 at the inputs a step gave them.
+   goes, and K1 and K2 at the inputs a step gave them: K2's bound at the
+   f32 CUDA-core rate and at the 3xTF32 rate its products run at, its
+   device time per pass (torch.profiler) and its workspace.
 7. card vs CPU — one step's loss, gradient norm and every parameter's
    gradient from the same weights and batch (8 pairs, dropout 0) on the
    card (kernels, cuDNN) and on the CPU (plain versions, oneDNN).
@@ -75,12 +78,14 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12  # tensor cores
+H100_TF32_FLOPS = 495e12  # tensor cores; K2's 3xTF32 products take three per f32 product
 H100_HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-3   # f32 both sides, summation order differs; sims are log-values of O(1-20)
 SLICE_TOL = 1e-3    # card (CUDA kernel, cuDNN convolutions) vs CPU (plain version, oneDNN)
 BATCH_TOL = 1e-3    # one image scored alone vs inside a batch of 64
 # K2 vs plain, per output, x its max|grad| (+1e-6): f32 both sides; the
-# summation order differs and the kernel adds the pairs' shares with atomics
+# summation order differs and the kernel's products are 3xTF32 (about 2^-21
+# relative per product)
 GRAD_TOL = 1e-3
 # card vs CPU train step (8 pairs, dropout 0): cuDNN and oneDNN sum the
 # convolutions in different orders, and train-mode BatchNorm amplifies that
@@ -171,19 +176,40 @@ def local_sim_bound(words, regions, mask) -> tuple[float, str]:
     return _ops_bound(ops, 4 * (words.numel() + regions.numel() + mask.numel() + B * T))
 
 
-def local_sim_bwd_bound(words, regions, mask, g) -> tuple[float, str]:
-    """Least time for these inputs, as :func:`local_sim_bound` for the
-    backward; against the inputs read once and both gradients written once.
-    Direct route (K2's): raw, V, ctx·Vᵀ, the two dregions terms and dwords,
-    12·S·D per valid word of each pair.  Gram route (the TPU kernel's): raw,
-    G·a2, dG = Σ dcn2·a2a2ᵀ, dregions and dwords, 6·S·D + 4·S² per valid
-    word of each pair, plus the Gram and (dG + dGᵀ)·ctx, 4·S²·D per image."""
+def local_sim_bwd_ops(words, regions, mask, g) -> tuple[int, int]:
+    """(operations, bytes) of the backward at these inputs: the products of
+    the cheaper of two routes, counted over the valid words of every (image,
+    text) pair; the inputs read once and both gradients written once.
+    Direct route (per pair): raw, V, ctx·Vᵀ, the two dregions terms and
+    dwords, 12·S·D per valid word of each pair.  Gram route (the TPU
+    kernel's, and K2's): raw, G·a2, dG = Σ dcn2·a2a2ᵀ, dregions
+    and dwords, 6·S·D + 4·S² per valid word of each pair, plus the Gram and
+    (dG + dGᵀ)·ctx, 4·S²·D per image."""
     T, W, D = words.shape
     B, S, _ = regions.shape
     word_pairs = B * int((mask > 0).sum())
     ops = min(12 * S * D * word_pairs, (6 * S * D + 4 * S * S) * word_pairs + 4 * S * S * D * B)
-    return _ops_bound(ops, 4 * (2 * words.numel() + 2 * regions.numel() + mask.numel()
-                                + g.numel()))
+    return ops, 4 * (2 * words.numel() + 2 * regions.numel() + mask.numel() + g.numel())
+
+
+def local_sim_bwd_bound(words, regions, mask, g) -> tuple[float, str]:
+    """Least time for these inputs, as :func:`local_sim_bound`, at the f32
+    CUDA-core peak."""
+    return _ops_bound(*local_sim_bwd_ops(words, regions, mask, g))
+
+
+def local_sim_bwd_bound_3xtf32(words, regions, mask, g) -> tuple[float, str]:
+    """Least time for the same products as K2 does them: each f32 product
+    as three TF32 products (hi·hi, hi·lo, lo·hi) at the TF32 tensor-core
+    peak, 495/3 = 165 TFLOP/s of f32-accurate products."""
+    ops, nbytes = local_sim_bwd_ops(words, regions, mask, g)
+    return _ops_bound(3 * ops, nbytes, H100_TF32_FLOPS)
+
+
+# K2's passes in launch order, by kernel name (csrc/local_sim_bwd.cu)
+K2_PASSES = ("k2w_word_norms", "k2p_gram", "k2p_raw", "k2w_row_softmax", "k2w_col_softmax",
+             "k2p_ga2", "k2w_pair_stats", "k2w_row_draw", "k2p_dgram", "k2p_dreg_words",
+             "k2p_dreg_gram", "k2p_dwords", "k2w_scatter")
 
 
 def grad_err(got, ref) -> tuple[float, float]:
@@ -269,10 +295,13 @@ def phase_bwd_probes() -> tuple[float, float]:
         ("mean", "mean", 48, 48, 97, 361, 768),
         ("max, sink", "max", 48, 48, 97, 362, 768),
         ("B, T > 128", "sum", 130, 136, 97, 362, 64),
+        ("all captions empty", "sum", 48, 48, 97, 361, 768),
     ]
     for name, agg, B, T, W, S, D in probes:
         caps = rng.randint(23, 64, size=T)  # the synthetic batch's cap_len range
         caps[:3] = [0, 1, W - 1]
+        if name == "all captions empty":
+            caps[:] = 0
         words = torch.from_numpy(rng.randn(T, W, D).astype(np.float32)).cuda()
         regions = torch.from_numpy(rng.randn(B, S, D).astype(np.float32)).cuda()
         g = torch.from_numpy(rng.randn(B, T).astype(np.float32)).cuda()
@@ -289,6 +318,8 @@ def phase_bwd_probes() -> tuple[float, float]:
             f"dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions max_abs_err={er:.3e} "
             f"(tol {tr:.3e})")
         check(ew <= tw and er <= tr, f"local_sim_bwd vs plain ({name})")
+        if name == "all captions empty":
+            check(not bool(dw.any() or dr.any()), "no valid word: both gradients exactly 0")
         del words, regions, g, mask, dw, dr, pw, pr
         torch.cuda.empty_cache()
     return worst, worst_ratio
@@ -402,12 +433,35 @@ def phase_train(card: str) -> dict:
                            5)
     out["k2_plain_ms"] = cuda_ms(
         lambda: local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw), 2)
-    out["k2_bound_ms"], out["k2_bound_by"] = local_sim_bwd_bound(words, regions, mask, g)
+    out["k2_bound_f32_ms"], _ = local_sim_bwd_bound(words, regions, mask, g)
+    out["k2_bound_ms"], out["k2_bound_by"] = local_sim_bwd_bound_3xtf32(words, regions, mask, g)
+    first = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
+    again = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "local_sim_bwd gives the same bits twice")
+    del first, again
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
+    torch.cuda.synchronize()
+    out["k2_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    passes = device_ms(lambda: local_sim.local_similarities_bwd(words, regions, mask, g, **kw),
+                       K2_PASSES)
+    out["k2_passes"] = passes
     log(f"[kernels] local_sim_bwd at the train step's inputs: {valid} valid words x "
         f"{regions.shape[0]} images; dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions "
-        f"max_abs_err={er:.3e} (tol {tr:.3e}); kernel {out['k2_ms']:.4f} ms, plain "
-        f"{out['k2_plain_ms']:.4f} ms, bound {out['k2_bound_ms']:.4f} ms ({out['k2_bound_by']}) "
-        f"[{card}]")
+        f"max_abs_err={er:.3e} (tol {tr:.3e}), bitwise equal over two calls; kernel "
+        f"{out['k2_ms']:.4f} ms, plain {out['k2_plain_ms']:.4f} ms, bound "
+        f"{out['k2_bound_ms']:.4f} ms at the 3xTF32 rate ({out['k2_bound_by']}), "
+        f"{out['k2_bound_f32_ms']:.4f} ms at the f32 CUDA-core rate; outputs, workspace and "
+        f"packing {out['k2_extra_gb']:.3f} GB [{card}]")
+    products = sum(v or 0.0 for k, v in passes.items() if k.startswith("k2p_"))
+    passes_ms = sum(v or 0.0 for v in passes.values())
+    log("[kernels] local_sim_bwd per pass (torch.profiler device time, ms): " + ", ".join(
+        f"{k} {v:.4f}" if v is not None else f"{k} not recorded" for k, v in passes.items())
+        + f"; products {products:.4f}, elementwise {passes_ms - products:.4f}, all passes "
+        f"{passes_ms:.4f} [{card}]")
     del seen
 
     # where a step's time goes: each part timed on its own, CUDA events
@@ -905,7 +959,9 @@ def main() -> int:
         "launches": tr["launches"][1], "launches_by_path": {"train": tr["launches"][1]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
-        "bound_by": tr["k2_bound_by"], "library_ms": None,
+        "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
+        "bound_f32_ms": tr["k2_bound_f32_ms"], "library_ms": None,
+        "passes_ms": tr["k2_passes"],
     }] + [{
         "name": f"fused_bn_{key}", "route": "cuda",
         "source": f"gloria_tpu_torch/csrc/fused_bn_{key}.cu",

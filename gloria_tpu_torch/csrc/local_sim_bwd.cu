@@ -2,62 +2,74 @@
 //
 // Replaces gloria_tpu/ops/pallas/local_sim.py:_bwd_kernel (launched by
 // _sims_bwd_impl, wired to the forward by the custom_vjp
-// fused_local_similarities).
+// fused_local_similarities), and takes its Gram route.
 //
-// For every image b and text t the forward (see local_sim_fwd.cu) is
-//   raw[s,j] = ctx[b,s] . w[j]            (w[j] = words[t, j-th valid word])
-//   a1[s,:]  = softmax_j raw[s,:]          (over the valid words)
-//   a2[:,j]  = softmax_s temp1 a1[:,j]     (over the regions)
-//   dot[j]   = sum_s a2 raw,  V[j] = sum_s a2[s,j] ctx[b,s],  cn2[j] = |V[j]|^2
-//   cos[j]   = dot / max(|w[j]| sqrt(max(cn2, 1e-12)), 1e-8)
-//   out[b,t] = log(max(agg_j exp(temp2 cos[j]), 1e-8))
-// and this kernel chain-rules g[b,t] = dL/dout[b,t] back to dwords [T,W,D]
-// and dregions [B,S,D]:
-//   p[j]   = e/max(sum e, 1e-8) (sum, mean) or the argmax split over ties (max)
-//   drow   = g temp2 p;  ddot = drow/denom;  ddenom = -drow dot/denom^2
-//   dcn2   = ddenom |w| / (2 cn);  dwn = ddenom cn
-//   da2    = ddot raw + 2 dcn2 (ctx . V[j])             (G a2 = ctx V^T)
-//   da1    = temp1 a2 (da2 - c[j]),  c[j] = sum_s a2 da2 = ddot dot + 2 dcn2 cn2
-//   draw   = a1 (da1 - sum_j a1 da1) + ddot a2
-//   dregions[b] += draw w + (2 dcn2 a2) V                 (sum over j)
-//   dwords[t,j] += draw^T ctx + (dwn/|w|) w               (sum over s)
-// c[j] needs no pass of its own: sum_s a2 (G a2) = |V|^2 = cn2.
+// The wrapper (ops/local_sim.py) packs the valid words of all texts, text by
+// text, into Wc [N, D] (N = sum_t nv_t); text t owns columns
+// [text_start[t], text_start[t + 1]).  For every image b, over all columns
+// at once (a "segment" is one text's columns in one row):
+//   raw[s,n] = ctx[b,s] . Wc[n]
+//   a1[s,:]  = softmax over each segment of raw[s,:]      (the word softmax)
+//   a2[:,n]  = softmax_s temp1 a1[:,n]                    (the region softmax)
+//   dot[n]   = sum_s a2 raw,  cn2[n] = sum_s a2 (G a2),  G = ctx[b] ctx[b]^T
+//   cos[n]   = dot / max(|Wc[n]| sqrt(max(cn2, 1e-12)), 1e-8)
+//   out[b,t] = log(max(agg over t's columns of exp(temp2 cos), 1e-8))
+// and g[b,t] = dL/dout[b,t] goes back to dwords [T,W,D] and dregions [B,S,D]:
+//   p[n]   = e/max(sum e, 1e-8) (sum, mean) or the argmax split over ties (max)
+//   drow   = g temp2 p;  ddot = drow/den;  dden = -drow dot/den^2
+//   dcn2   = dden |w| / (2 cn);  dwn = dden cn
+//   da2    = ddot raw + 2 dcn2 (G a2)
+//   da1    = temp1 a2 (da2 - c[n]),  c[n] = sum_s a2 da2 = ddot dot + 2 dcn2 cn2
+//   draw   = a1 (da1 - sum over the segment of a1 da1) + ddot a2
+//   dG     = a2 diag(2 dcn2) a2^T   (symmetric: the Gram's two sides give 2 dG)
+//   dregions[b] = draw Wc + dG ctx[b]
+//   dwords[t,w] = sum_b (draw[b]^T ctx[b])[n] + (sum_b dwn / |w|) w   (n = t, w's column)
 //
-// Design:
-//  * Each block walks the (b, t) pairs with a stride of gridDim.x; the
-//    wrapper launches BWD_BLOCKS_PER_SM blocks per SM.  A block first
-//    compacts its text's valid words, so all work scales with them.
-//  * Every product is the same tiled block product (64 x 64 output tiles,
-//    16-deep chunks staged in shared memory, 4 x 4 outputs per thread),
-//    with operand loads and the epilogue passed in as lambdas.  Six
-//    products of 2 S nv D operations each: raw, V, ctx V^T, the two dctx
-//    terms (one product of depth 2 nv) and dwords.
-//  * The [S, nv] arrays (raw, then a1; e2; a1 da1, then draw) and V [nv, D]
-//    live in a per-block scratch slice in device memory that the wrapper
-//    allocates: at nv = 96 one [S, nv] f32 array is 139 KB, so two do not
-//    fit the 227 KB of shared memory a block may use.  Shared memory holds
-//    the staged tiles and the per-region and per-word statistics only
-//    (about 22 KB at S = 362, nv = 96).
-//  * a1 lies in [0, 1], so the region-softmax logits need no running max:
-//    e2 = exp(temp1 a1 - max(temp1, 0)), as in the forward kernel.
-//  * dregions[b] sums over texts and dwords[t] over images, and blocks run
-//    in no order: both are f32 atomicAdd into outputs the wrapper zeroes,
-//    so the summation order changes from run to run.  Pair p maps to
-//    b = p % B so the blocks in flight at one time mostly add into
-//    different images.
-//  * Everything is f32 on the CUDA cores: no tensor cores yet.
-// What bounds it on an H100: operations.  This kernel's six products cost
-// 12 S D per valid word of each pair.  The TPU kernel's Gram route costs less
-// when S < D: raw, G a2 and dG = sum_j dcn2 a2 a2^T per valid word of each
-// pair (6 S D + 4 S^2), and per image the Gram G = ctx ctx^T and
-// (dG + dG^T) ctx (4 S^2 D).  At the pretrain shape (B = T = 48, S = 361,
-// D = 768) the synthetic batch of seed 0 has sum_pairs nv = 48 sum_t nv_t =
-// 1.04e5, so the Gram route needs 2.46e11 operations, 3.67 ms at the
-// 67 TFLOP/s f32 peak (this kernel's route: 3.45e11).  The bytes (inputs
-// once, outputs once) are about 0.15 GB, 0.05 ms at 3.35 TB/s.
-// chip_smoke.py computes the bound from each run's own mask, by the cheaper
-// route.
-// Launches: one per GLoRIA train step (the backward of the local loss).
+// Passes, in launch order (kernel names as the profiler shows them):
+//   k2w_word_norms   |Wc[n]|
+//   k2p_gram         G[b] = ctx ctx^T            [S, S], K = D      (product)
+//   k2p_raw          raw[b] = ctx Wc^T           [S, N], K = D      (product)
+//   k2w_row_softmax  per segment: max, 1/sum; e2 = exp(temp1 a1 - max(temp1, 0))
+//   k2w_col_softmax  per column: a2 = e2 / sum_s e2 (in place), dot
+//   k2p_ga2          G[b] a2                     [S, N], K = S      (product)
+//   k2w_pair_stats   per (image, text): cn2, the aggregation, ddot, 2 dcn2, c, dwn
+//   k2w_row_draw     per segment: draw (in place of raw), 2 dcn2 a2 (in place of G a2)
+//   k2p_dgram        dG[b] = (2 dcn2 a2) a2^T    [S, S], K = N      (product, into G)
+//   k2p_dreg_words   dregions[b] = draw Wc       [S, D], K = N      (product)
+//   k2p_dreg_gram    dregions[b] += dG ctx       [S, D], K = S      (product)
+//   k2p_dwords       part[z] = draw^T ctx over images z*ipb.. [N, D], K = ipb*S (product)
+//   k2w_scatter      dwords[t,w] = sum_z part[z][n] + (sum_b dwn[b,n] / |w|) w, 0 elsewhere
+// All seven products are one routine, tf32x3_mma.cuh: tensor cores (mma.sync
+// m16n8k8 TF32) at f32 accuracy by the 3xTF32 split.
+//
+// What bounds it on an H100: operations.  The products cost, over the packed
+// columns, 2 S D N + 2 S^2 N + 2 S^2 N + 2 S D N + 2 S D N per image plus
+// 2 S^2 D + 2 S^2 D per image = B (6 S D N + 4 S^2 N + 4 S^2 D): the TPU
+// kernel's Gram route.  At the pretrain shape (B = T = 48, S = 361, D = 768,
+// N = 2160 for the synthetic batch of seed 0) that is 2.46e11 operations:
+// 3.67 ms at the 67 TFLOP/s f32 CUDA-core peak, or, as 3xTF32 does them
+// (three TF32 products each), 1.49 ms at the 495 TFLOP/s TF32 peak
+// (165 TFLOP/s of f32-accurate products).  The bytes: inputs read once and
+// outputs written once are about 0.15 GB (0.05 ms at 3.35 TB/s).  The three
+// [B, S, N] f32 work arrays (150 MB each at that shape) are read or written
+// about 20 times in all by the passes below, about 3 GB, 0.9 ms: the floor
+// of this design's elementwise work.  chip_smoke.py computes both bounds
+// from each run's own mask.
+//
+// What the design does about the per-pair kernel it replaces:
+//  * One block per (image, text) pair, each product about nv = 45 words
+//    wide, becomes seven dense products batched over the images, as wide as
+//    all texts' valid words together (N = 2160 at the pretrain shape).
+//  * f32 on the CUDA cores becomes tensor-core products at f32 accuracy.
+//  * The [S, nv] arrays in a per-block scratch slice become three [B, S, N]
+//    arrays in a workspace the wrapper allocates once per call, read and
+//    written by coalesced elementwise passes.
+//  * f32 atomics into dregions and dwords are gone: dregions[b] is the sum
+//    of two products written by one block per tile in launch order, and the
+//    sum of dwords over the images is the contraction of k2p_dwords (split
+//    into a few image ranges, added in order by k2w_scatter).  The result is
+//    the same bit for bit from run to run.
+// Launches: one call per GLoRIA train step (the backward of the local loss).
 // No single PyTorch call computes this function, so it has no library
 // yardstick.
 
@@ -66,18 +78,12 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "tf32x3_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBM = 64;  // output rows per tile
-constexpr int kBN = 64;  // output columns per tile
-constexpr int kBK = 16;  // depth of one staged chunk
-constexpr int kLdA = kBM + 1;
-constexpr int kLdB = kBN + 1;
-constexpr int kStage = kBK * kLdA + kBK * kLdB;
-// per-word statistics kept in shared memory, each [ncap]
-constexpr int kWordStats = 9;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -89,311 +95,355 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// C[M, N] = sum_k A(m, k) B(k, n), delivered element by element to
-// epi(m, n, value).  Operands come through load_a(m, k) and load_b(k, n),
-// which read only in bounds.  kAKFast: consecutive k of A are adjacent in
-// memory (else consecutive m); kBNFast: consecutive n of B are adjacent
-// (else consecutive k).  Thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j of each 64 x 64 tile.  Ends with a barrier.
-template <bool kAKFast, bool kBNFast, class LoadA, class LoadB, class Epi>
-__device__ __forceinline__ void block_product(int M, int N, int K, LoadA load_a, LoadB load_b,
-                                              Epi epi, float* stage) {
-  float* as = stage;              // [kBK][kLdA]
-  float* bs = stage + kBK * kLdA; // [kBK][kLdB]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  for (int m0 = 0; m0 < M; m0 += kBM) {
-    for (int n0 = 0; n0 < N; n0 += kBN) {
-      float acc[4][4] = {};
-      for (int k0 = 0; k0 < K; k0 += kBK) {
-        for (int i = tid; i < kBM * kBK; i += kThreads) {
-          const int mm = kAKFast ? i / kBK : i % kBM;
-          const int kk = kAKFast ? i % kBK : i / kBM;
-          const int m = m0 + mm, k = k0 + kk;
-          as[kk * kLdA + mm] = (m < M && k < K) ? load_a(m, k) : 0.f;
-        }
-        for (int i = tid; i < kBN * kBK; i += kThreads) {
-          const int nn = kBNFast ? i % kBN : i / kBK;
-          const int kk = kBNFast ? i / kBN : i % kBK;
-          const int n = n0 + nn, k = k0 + kk;
-          bs[kk * kLdB + nn] = (n < N && k < K) ? load_b(k, n) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = as[kk * kLdA + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = bs[kk * kLdB + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + tx + 16 * j;
-          if (m < M && n < N) epi(m, n, acc[i][j]);
-        }
-      }
+// The shapes every pass reads.  np, sp, dp: leading dimensions (multiples
+// of 4) of the [B, S, N] work arrays, the Gram [B, S, S] and ctx / Wc.
+struct Shape {
+  int B, T, S, W, D, N, np, sp, dp;
+};
+
+// ---- products: one named kernel per pass, all the same routine ----------
+#define K2_PRODUCT(name, a_k, b_k)                                                         \
+  __global__ void __launch_bounds__(tf32x3::kThreads, 2) name(tf32x3::Args p) {            \
+    tf32x3::product<a_k, b_k>(p);                                                           \
+  }
+K2_PRODUCT(k2p_gram, true, true)        // ctx [S][D] . ctx [S][D]^T
+K2_PRODUCT(k2p_raw, true, true)         // ctx [S][D] . Wc [N][D]^T
+K2_PRODUCT(k2p_ga2, true, false)        // G [S][S] . a2 [S][N]
+K2_PRODUCT(k2p_dgram, true, true)       // wa2 [S][N] . a2 [S][N]^T
+K2_PRODUCT(k2p_dreg_words, true, false) // draw [S][N] . Wc [N][D]
+K2_PRODUCT(k2p_dreg_gram, true, false)  // dG [S][S] . ctx [S][D]
+K2_PRODUCT(k2p_dwords, false, false)    // draw [BS][N]^T . ctx [BS][D]
+#undef K2_PRODUCT
+
+// ---- elementwise and reduction passes --------------------------------------
+
+// wn[n] = sqrt(max(|Wc[n]|^2, 1e-12)), one warp per column.
+__global__ void __launch_bounds__(kThreads) k2w_word_norms(const float* __restrict__ wc,
+                                                           float* __restrict__ wn, Shape sh) {
+  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (n >= sh.N) return;
+  const float* row = wc + (size_t)n * sh.dp;
+  float acc = 0.f;
+  for (int d = lane; d < sh.D; d += 32) acc += row[d] * row[d];
+  acc = warp_sum(acc);
+  if (lane == 0) wn[n] = sqrtf(fmaxf(acc, 1e-12f));
+}
+
+// One block per row (b, s); warp w takes segments w, w + 8, ...  Writes the
+// segment's max and 1/sum of the word softmax and e2 = exp(temp1 a1 - shift).
+__global__ void __launch_bounds__(kThreads) k2w_row_softmax(
+    const float* __restrict__ raw, float* __restrict__ e2, float* __restrict__ row_m,
+    float* __restrict__ row_iz, const int* __restrict__ text_start, Shape sh, float temp1) {
+  const int row = blockIdx.x;  // b * S + s
+  const int lane = threadIdx.x & 31;
+  const float shift = fmaxf(temp1, 0.f);
+  const float* r = raw + (size_t)row * sh.np;
+  float* e = e2 + (size_t)row * sh.np;
+  for (int t = threadIdx.x >> 5; t < sh.T; t += kWarps) {
+    const int c0 = text_start[t], c1 = text_start[t + 1];
+    if (c0 == c1) continue;
+    float m = -INFINITY;
+    for (int n = c0 + lane; n < c1; n += 32) m = fmaxf(m, r[n]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int n = c0 + lane; n < c1; n += 32) z += expf(r[n] - m);
+    const float iz = 1.f / warp_sum(z);
+    if (lane == 0) {
+      row_m[(size_t)row * sh.T + t] = m;
+      row_iz[(size_t)row * sh.T + t] = iz;
     }
+    for (int n = c0 + lane; n < c1; n += 32) e[n] = expf(temp1 * (expf(r[n] - m) * iz) - shift);
+  }
+}
+
+// One thread per column (b, n): a2 = e2 / sum_s e2 in place; dot = sum_s a2 raw.
+__global__ void __launch_bounds__(kThreads) k2w_col_softmax(const float* __restrict__ raw,
+                                                            float* __restrict__ a2,
+                                                            float* __restrict__ dot, Shape sh) {
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  if (n >= sh.N) return;
+  const size_t base = (size_t)b * sh.S * sh.np + n;
+  float z = 0.f;
+  for (int s = 0; s < sh.S; ++s) z += a2[base + (size_t)s * sh.np];
+  const float iz = 1.f / z;
+  float acc = 0.f;
+  for (int s = 0; s < sh.S; ++s) {
+    const size_t o = base + (size_t)s * sh.np;
+    const float v = a2[o] * iz;
+    a2[o] = v;
+    acc += v * raw[o];
+  }
+  dot[(size_t)b * sh.N + n] = acc;
+}
+
+// Per-column statistics of one image, each [B, N].
+struct ColStats {
+  float* dot;
+  float* cn2;
+  float* ddot;
+  float* dcn2x2;
+  float* cc;
+  float* dwn;
+};
+
+// One warp per (image, text) pair: cn2 = sum_s a2 (G a2) per column, then
+// the aggregation over the text's columns and the chain back to dot, cn2
+// and |w|.
+__global__ void __launch_bounds__(kThreads) k2w_pair_stats(
+    const float* __restrict__ a2, const float* __restrict__ ga2, const float* __restrict__ wn,
+    const float* __restrict__ gsims, const int* __restrict__ text_start, ColStats st, Shape sh,
+    float temp2, int agg) {
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  if (t >= sh.T) return;
+  const int c0 = text_start[t], c1 = text_start[t + 1];
+  if (c0 == c1) return;  // sims = log(1e-8) whatever the inputs: no gradient
+  const size_t base = (size_t)b * sh.S * sh.np;
+  const size_t col = (size_t)b * sh.N;
+  for (int n = c0 + lane; n < c1; n += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < sh.S; ++s) {
+      const size_t o = base + (size_t)s * sh.np + n;
+      acc += a2[o] * ga2[o];
+    }
+    st.cn2[col + n] = acc;
+  }
+  __syncwarp();
+  // e = exp(temp2 cos) waits in ddot until the last loop, so the max's ties
+  // compare the very values the sum and the max were taken over
+  float esum = 0.f, emax = 0.f;
+  for (int n = c0 + lane; n < c1; n += 32) {
+    const float den = fmaxf(wn[n] * sqrtf(fmaxf(st.cn2[col + n], 1e-12f)), 1e-8f);
+    const float e = expf(temp2 * (st.dot[col + n] / den));
+    st.ddot[col + n] = e;
+    esum += e;
+    emax = fmaxf(emax, e);
+  }
+  esum = warp_sum(esum);
+  emax = warp_max(emax);
+  float hits = 0.f;
+  for (int n = c0 + lane; n < c1; n += 32) hits += (st.ddot[col + n] == emax) ? 1.f : 0.f;
+  hits = fmaxf(warp_sum(hits), 1.f);
+  const float g = gsims[(size_t)b * sh.T + t];
+  for (int n = c0 + lane; n < c1; n += 32) {
+    const float cn2 = st.cn2[col + n], dotv = st.dot[col + n], w = wn[n];
+    const float cn = sqrtf(fmaxf(cn2, 1e-12f));
+    const float den = fmaxf(w * cn, 1e-8f);
+    const float e = st.ddot[col + n];
+    const float p = (agg == 1) ? ((e == emax) ? 1.f / hits : 0.f) : e / fmaxf(esum, 1e-8f);
+    const float drow = g * temp2 * p;
+    const float dd = drow / den;
+    const float dden = -drow * dotv / (den * den);
+    const float dc2 = dden * w / (2.f * cn);
+    st.ddot[col + n] = dd;
+    st.dcn2x2[col + n] = 2.f * dc2;
+    st.cc[col + n] = dd * dotv + 2.f * dc2 * cn2;
+    st.dwn[col + n] = dden * cn;
+  }
+}
+
+// One block per row (b, s), warps over segments: draw in place of raw, and
+// wa2 = 2 dcn2 a2 in place of G a2.
+__global__ void __launch_bounds__(kThreads) k2w_row_draw(
+    float* __restrict__ raw_draw, const float* __restrict__ a2, float* __restrict__ ga2_wa2,
+    const float* __restrict__ row_m, const float* __restrict__ row_iz,
+    const int* __restrict__ text_start, ColStats st, Shape sh, float temp1) {
+  const int row = blockIdx.x;  // b * S + s
+  const int b = row / sh.S;
+  const int lane = threadIdx.x & 31;
+  const size_t o0 = (size_t)row * sh.np;
+  const size_t col = (size_t)b * sh.N;
+  for (int t = threadIdx.x >> 5; t < sh.T; t += kWarps) {
+    const int c0 = text_start[t], c1 = text_start[t + 1];
+    if (c0 == c1) continue;
+    const float m = row_m[(size_t)row * sh.T + t];
+    const float iz = row_iz[(size_t)row * sh.T + t];
+    float rs = 0.f;  // sum over the segment of a1 da1
+    for (int n = c0 + lane; n < c1; n += 32) {
+      const float x = raw_draw[o0 + n], v = a2[o0 + n];
+      const float a1 = expf(x - m) * iz;
+      rs += a1 * temp1 * v * (st.ddot[col + n] * x + st.dcn2x2[col + n] * ga2_wa2[o0 + n]
+                              - st.cc[col + n]);
+    }
+    rs = warp_sum(rs);
+    for (int n = c0 + lane; n < c1; n += 32) {
+      const float x = raw_draw[o0 + n], v = a2[o0 + n];
+      const float a1 = expf(x - m) * iz;
+      const float dd = st.ddot[col + n], d2 = st.dcn2x2[col + n];
+      const float u = a1 * temp1 * v * (dd * x + d2 * ga2_wa2[o0 + n] - st.cc[col + n]);
+      raw_draw[o0 + n] = u - a1 * rs + dd * v;
+      ga2_wa2[o0 + n] = d2 * v;
+    }
+  }
+}
+
+// One block per word slot (t, w): the column's parts summed in order plus
+// the norm term, or 0 for a padded slot.
+__global__ void __launch_bounds__(kThreads) k2w_scatter(
+    const float* __restrict__ part, const float* __restrict__ dwn, const float* __restrict__ wn,
+    const float* __restrict__ words, const int* __restrict__ col_of, float* __restrict__ dwords,
+    Shape sh, int splits) {
+  const int slot = blockIdx.x;  // t * W + w
+  const int n = col_of[slot];
+  float* out = dwords + (size_t)slot * sh.D;
+  if (n < 0) {
+    for (int d = threadIdx.x; d < sh.D; d += kThreads) out[d] = 0.f;
+    return;
+  }
+  __shared__ float scale;
+  if (threadIdx.x < 32) {
+    float acc = 0.f;
+    for (int b = threadIdx.x; b < sh.B; b += 32) acc += dwn[(size_t)b * sh.N + n];
+    acc = warp_sum(acc);
+    if (threadIdx.x == 0) scale = acc / fmaxf(wn[n], 1e-12f);
   }
   __syncthreads();
-}
-
-// Dynamic shared memory, in order (floats unless noted):
-//   stage[kStage]                  staged operand chunks
-//   row_m[S], row_iz[S]            per region: max and 1/sum of the word softmax
-//   part_z, part_n[kWarps * ncap]  per-warp partial sums of e2 and e2 raw
-//   wn, iz2, dot, cn2, ev, ddot, dcn2x2, cc, dwn [ncap]   per-word statistics
-//   wl[ncap] (int)                 compacted valid-word indices
-// Scratch slice of this block in device memory (floats):
-//   raw[S * ncap] (raw, then a1), e2[S * ncap], u[S * ncap] (a1 da1, then
-//   draw), each row-major [s][j] with row length nv; vbuf[ncap * D] (V).
-__global__ void __launch_bounds__(kThreads)
-local_sim_bwd_kernel(const float* __restrict__ words, const float* __restrict__ ctx_all,
-                     const float* __restrict__ mask, const float* __restrict__ gsims,
-                     float* dwords, float* dregions, float* scratch, size_t scratch_per_block,
-                     int B, int T, int S, int W, int D, int ncap,
-                     float temp1, float temp2, int agg) {
-  extern __shared__ float smem[];
-  float* stage = smem;
-  float* row_m = stage + kStage;
-  float* row_iz = row_m + S;
-  float* part_z = row_iz + S;
-  float* part_n = part_z + kWarps * ncap;
-  float* wn = part_n + kWarps * ncap;
-  float* iz2 = wn + ncap;
-  float* dot = iz2 + ncap;
-  float* cn2 = dot + ncap;
-  float* ev = cn2 + ncap;
-  float* ddot = ev + ncap;
-  float* dcn2x2 = ddot + ncap;
-  float* cc = dcn2x2 + ncap;
-  float* dwn = cc + ncap;
-  int* wl = reinterpret_cast<int*>(dwn + ncap);
-  __shared__ int nv_s;
-
-  float* raw = scratch + blockIdx.x * scratch_per_block;
-  float* e2 = raw + (size_t)S * ncap;
-  float* u = e2 + (size_t)S * ncap;
-  float* vbuf = u + (size_t)S * ncap;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float shift = fmaxf(temp1, 0.f);
-
-  for (int pair = blockIdx.x; pair < B * T; pair += gridDim.x) {
-    const int b = pair % B;
-    const int t = pair / B;
-    const float g = gsims[(size_t)b * T + t];
-    const float* ctx = ctx_all + (size_t)b * S * D;
-    const float* wt = words + (size_t)t * W * D;
-    const float* mk = mask + (size_t)t * W;
-
-    // ---- compact the valid words ---------------------------------------
-    if (tid == 0) {
-      int n = 0;
-      for (int w = 0; w < W; ++w)
-        if (mk[w] > 0.f && n < ncap) wl[n++] = w;
-      nv_s = n;
-    }
-    __syncthreads();
-    const int nv = nv_s;
-    if (nv == 0) {  // sims = log(1e-8) whatever the inputs: no gradient
-      __syncthreads();
-      continue;
-    }
-    for (int i = tid; i < kWarps * ncap; i += kThreads) {
-      part_z[i] = 0.f;
-      part_n[i] = 0.f;
-    }
-    for (int j = warp; j < nv; j += kWarps) {  // word norms, one warp per word
-      const float* row = wt + (size_t)wl[j] * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc += row[d] * row[d];
-      acc = warp_sum(acc);
-      if (lane == 0) wn[j] = sqrtf(fmaxf(acc, 1e-12f));
-    }
-
-    // ---- 1. raw[s][j] = ctx[s] . w[j] ------------------------------------
-    block_product<true, false>(
-        S, nv, D, [&](int s, int d) { return ctx[(size_t)s * D + d]; },
-        [&](int d, int j) { return wt[(size_t)wl[j] * D + d]; },
-        [&](int s, int j, float v) { raw[(size_t)s * nv + j] = v; }, stage);
-
-    // ---- word softmax per region; e2; column sums Z2 = sum_s e2, N = sum_s e2 raw
-    for (int s = warp; s < S; s += kWarps) {
-      const float* r = raw + (size_t)s * nv;
-      float m = -INFINITY;
-      for (int j = lane; j < nv; j += 32) m = fmaxf(m, r[j]);
-      m = warp_max(m);
-      float z = 0.f;
-      for (int j = lane; j < nv; j += 32) z += expf(r[j] - m);
-      const float iz = 1.f / warp_sum(z);
-      if (lane == 0) {
-        row_m[s] = m;
-        row_iz[s] = iz;
-      }
-      for (int j = lane; j < nv; j += 32) {
-        const float x = r[j];
-        const float e = expf(temp1 * (expf(x - m) * iz) - shift);
-        e2[(size_t)s * nv + j] = e;
-        part_z[warp * ncap + j] += e;
-        part_n[warp * ncap + j] += e * x;
-      }
-    }
-    __syncthreads();
-    for (int j = tid; j < nv; j += kThreads) {
-      float z = 0.f, n = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        z += part_z[w * ncap + j];
-        n += part_n[w * ncap + j];
-      }
-      iz2[j] = 1.f / z;
-      dot[j] = n / z;
-    }
-    __syncthreads();
-
-    // ---- 2. V[j][d] = sum_s a2[s][j] ctx[s][d] -----------------------------
-    block_product<false, true>(
-        nv, D, S, [&](int j, int s) { return e2[(size_t)s * nv + j]; },
-        [&](int s, int d) { return ctx[(size_t)s * D + d]; },
-        [&](int j, int d, float v) { vbuf[(size_t)j * D + d] = v * iz2[j]; }, stage);
-    for (int j = warp; j < nv; j += kWarps) {
-      const float* row = vbuf + (size_t)j * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc += row[d] * row[d];
-      acc = warp_sum(acc);
-      if (lane == 0) cn2[j] = acc;
-    }
-    __syncthreads();
-
-    // ---- per word: forward values, then the chain back to dot, cn2, |w| (warp 0)
-    if (warp == 0) {
-      float esum = 0.f, emax = 0.f;
-      for (int j = lane; j < nv; j += 32) {
-        const float den = fmaxf(wn[j] * sqrtf(fmaxf(cn2[j], 1e-12f)), 1e-8f);
-        const float e = expf(temp2 * (dot[j] / den));
-        ev[j] = e;
-        esum += e;
-        emax = fmaxf(emax, e);
-      }
-      esum = warp_sum(esum);
-      emax = warp_max(emax);
-      float hits = 0.f;
-      for (int j = lane; j < nv; j += 32) hits += (ev[j] == emax) ? 1.f : 0.f;
-      hits = fmaxf(warp_sum(hits), 1.f);
-      for (int j = lane; j < nv; j += 32) {
-        const float p = (agg == 1) ? ((ev[j] == emax) ? 1.f / hits : 0.f)
-                                   : ev[j] / fmaxf(esum, 1e-8f);
-        const float drow = g * temp2 * p;
-        const float cn = sqrtf(fmaxf(cn2[j], 1e-12f));
-        const float den = fmaxf(wn[j] * cn, 1e-8f);
-        const float dd = drow / den;
-        const float dden = -drow * dot[j] / (den * den);
-        const float dc2 = dden * wn[j] / (2.f * cn);
-        ddot[j] = dd;
-        dcn2x2[j] = 2.f * dc2;
-        cc[j] = dd * dot[j] + 2.f * dc2 * cn2[j];
-        dwn[j] = dden * cn / fmaxf(wn[j], 1e-12f);
-      }
-    }
-    __syncthreads();
-
-    // ---- 3. GA[s][j] = ctx[s] . V[j]; epilogue: a1 in place of raw, u = a1 da1
-    block_product<true, false>(
-        S, nv, D, [&](int s, int d) { return ctx[(size_t)s * D + d]; },
-        [&](int d, int j) { return vbuf[(size_t)j * D + d]; },
-        [&](int s, int j, float ga) {
-          const size_t o = (size_t)s * nv + j;
-          const float x = raw[o];
-          const float a1 = expf(x - row_m[s]) * row_iz[s];
-          const float a2 = e2[o] * iz2[j];
-          const float da1 = temp1 * a2 * (ddot[j] * x + dcn2x2[j] * ga - cc[j]);
-          raw[o] = a1;
-          u[o] = a1 * da1;
-        },
-        stage);
-
-    // ---- draw = a1 da1 - a1 sum_j a1 da1 + ddot a2, in place of u --------
-    for (int s = warp; s < S; s += kWarps) {
-      float rs = 0.f;
-      for (int j = lane; j < nv; j += 32) rs += u[(size_t)s * nv + j];
-      rs = warp_sum(rs);
-      for (int j = lane; j < nv; j += 32) {
-        const size_t o = (size_t)s * nv + j;
-        u[o] = u[o] - raw[o] * rs + ddot[j] * e2[o] * iz2[j];
-      }
-    }
-    __syncthreads();
-
-    // ---- 4. dregions[b][s] += sum_j draw[s][j] w[j] + (2 dcn2 a2)[s][j] V[j]
-    block_product<true, true>(
-        S, D, 2 * nv,
-        [&](int s, int k) {
-          const size_t row = (size_t)s * nv;
-          return k < nv ? u[row + k] : dcn2x2[k - nv] * e2[row + k - nv] * iz2[k - nv];
-        },
-        [&](int k, int d) {
-          return k < nv ? wt[(size_t)wl[k] * D + d] : vbuf[(size_t)(k - nv) * D + d];
-        },
-        [&](int s, int d, float v) { atomicAdd(dregions + ((size_t)b * S + s) * D + d, v); },
-        stage);
-
-    // ---- 5. dwords[t][w_j] += sum_s draw[s][j] ctx[s] + (dwn / |w|) w[j] -----
-    block_product<false, true>(
-        nv, D, S, [&](int j, int s) { return u[(size_t)s * nv + j]; },
-        [&](int s, int d) { return ctx[(size_t)s * D + d]; },
-        [&](int j, int d, float v) {
-          const size_t o = (size_t)wl[j] * D + d;
-          atomicAdd(dwords + (size_t)t * W * D + o, v + dwn[j] * wt[o]);
-        },
-        stage);
+  const float* w = words + (size_t)slot * sh.D;
+  for (int d = threadIdx.x; d < sh.D; d += kThreads) {
+    float acc = 0.f;
+    for (int z = 0; z < splits; ++z) acc += part[((size_t)z * sh.N + n) * sh.D + d];
+    out[d] = acc + scale * w[d];
   }
 }
 
-size_t smem_bytes(int S, int ncap) {
-  return sizeof(float) * ((size_t)kStage + 2 * (size_t)S + 2 * (size_t)kWarps * ncap +
-                          (size_t)kWordStats * ncap) +
-         sizeof(int) * (size_t)ncap;
+__global__ void __launch_bounds__(kThreads) k2w_zero(float* __restrict__ x, size_t count) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * kThreads)
+    x[i] = 0.f;
+}
+
+size_t round4(size_t x) { return (x + 3) / 4 * 4; }
+
+// The workspace, carved in this order (each piece a multiple of 4 floats).
+struct Workspace {
+  float *x0, *x1, *x2, *gram, *part, *row_m, *row_iz, *wn;
+  ColStats st;
+};
+
+size_t carve(float* base, const Shape& sh, int splits, Workspace* ws) {
+  const size_t big = (size_t)sh.B * sh.S * sh.np;
+  const size_t sizes[] = {big, big, big, (size_t)sh.B * sh.S * sh.sp,
+                          (size_t)splits * sh.N * sh.D, (size_t)sh.B * sh.S * sh.T,
+                          (size_t)sh.B * sh.S * sh.T, (size_t)sh.N,
+                          (size_t)sh.B * sh.N, (size_t)sh.B * sh.N, (size_t)sh.B * sh.N,
+                          (size_t)sh.B * sh.N, (size_t)sh.B * sh.N, (size_t)sh.B * sh.N};
+  float** slots[] = {&ws->x0, &ws->x1, &ws->x2, &ws->gram, &ws->part, &ws->row_m, &ws->row_iz,
+                     &ws->wn, &ws->st.dot, &ws->st.cn2, &ws->st.ddot, &ws->st.dcn2x2,
+                     &ws->st.cc, &ws->st.dwn};
+  size_t off = 0;
+  for (int i = 0; i < 14; ++i) {
+    if (base != nullptr) *slots[i] = base + off;
+    off += round4(sizes[i]);
+  }
+  return off;
+}
+
+template <class Kernel>
+cudaError_t launch_product(Kernel kernel, const tf32x3::Args& p, int batch, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         tf32x3::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // all of the SM's 228 KB to shared memory, so two blocks fit
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<tf32x3::grid_of(p, batch), tf32x3::kThreads, tf32x3::kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+tf32x3::Args args(const float* a, int lda, long long sa, const float* b, int ldb, long long sb,
+                  float* c, int ldc, long long sc, int m, int n, int k, float alpha = 1.f,
+                  int accumulate = 0) {
+  return tf32x3::Args{a, b, c, m, n, k, k, lda, ldb, ldc, sa, sb, sc, alpha, accumulate};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of device scratch one block needs; the wrapper allocates
-// grid * this many.
-size_t local_sim_bwd_scratch_floats(int S, int D, int ncap) {
-  return 3 * (size_t)S * ncap + (size_t)ncap * D;
+// Floats of workspace one call needs; the wrapper allocates them.
+size_t local_sim_bwd_workspace_floats(int B, int T, int S, int D, int N, int splits) {
+  const Shape sh{B, T, S, 0, D, N, (int)round4(N), (int)round4(S), 0};
+  Workspace sizes_only;
+  return carve(nullptr, sh, splits, &sizes_only);
 }
 
-// words [T, W, D], ctx [B, S, D], mask [T, W] (float, > 0 = valid), g [B, T];
-// dwords [T, W, D] and dregions [B, S, D] zeroed by the caller; scratch of
-// grid * local_sim_bwd_scratch_floats(S, D, ncap) floats.  All f32,
-// contiguous, on the device of `stream`.  ncap >= 1 and >= the largest count
-// of valid words in any mask row.  agg: 0 sum, 1 max, 2 mean.
-// Returns cudaGetLastError() after the launch.
-int local_sim_bwd(const float* words, const float* ctx, const float* mask, const float* g,
-                  float* dwords, float* dregions, float* scratch, int grid,
-                  int B, int T, int S, int W, int D, int ncap,
-                  float temp1, float temp2, int agg, void* stream) {
-  const size_t smem = smem_bytes(S, ncap);
-  cudaError_t err = cudaFuncSetAttribute(
-      local_sim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  local_sim_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      words, ctx, mask, g, dwords, dregions, scratch, local_sim_bwd_scratch_floats(S, D, ncap),
-      B, T, S, W, D, ncap, temp1, temp2, agg);
+// ctx [B, S, dp] (the first D of each row used), wc [N, dp] (the packed valid
+// words, text by text), words [T, W, D], text_start [T + 1] (int), col_of
+// [T * W] (int, the column of each word slot or -1), g [B, T]; dwords
+// [T, W, D] and dregions [B, S, D] are written in full; workspace of
+// local_sim_bwd_workspace_floats(B, T, S, D, N, splits) floats.  All f32
+// unless noted, contiguous, on the device of `stream`; ctx, wc and the
+// workspace 16-byte aligned, dp a multiple of 4.  k2p_dwords splits the
+// images into `splits` ranges of `ipb` images (the last one shorter).
+// agg: 0 sum, 1 max, 2 mean.  Returns the first launch error, or 0.
+int local_sim_bwd(const float* ctx, const float* wc, const float* words, const int* text_start,
+                  const int* col_of, const float* g, float* dwords, float* dregions,
+                  float* workspace, int B, int T, int S, int W, int D, int dp, int N, int splits,
+                  int ipb, float temp1, float temp2, int agg, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Shape sh{B, T, S, W, D, N, (int)round4(N), (int)round4(S), dp};
+  cudaError_t err;
+  if (N == 0) {  // every caption empty: the similarities are constant
+    const size_t counts[] = {(size_t)T * W * D, (size_t)B * S * D};
+    float* outs[] = {dwords, dregions};
+    for (int i = 0; i < 2; ++i) {
+      const int blocks = (int)((counts[i] + kThreads - 1) / kThreads < 4096
+                                   ? (counts[i] + kThreads - 1) / kThreads : 4096);
+      if (blocks == 0) continue;
+      k2w_zero<<<blocks, kThreads, 0, stream>>>(outs[i], counts[i]);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+  Workspace ws;
+  carve(workspace, sh, splits, &ws);
+  const long long s_ctx = (long long)S * dp, s_x = (long long)S * sh.np,
+                  s_g = (long long)S * sh.sp;
+
+  k2w_word_norms<<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(wc, ws.wn, sh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_product(k2p_gram, args(ctx, dp, s_ctx, ctx, dp, s_ctx, ws.gram, sh.sp, s_g,
+                                           S, S, D), B, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_product(k2p_raw, args(ctx, dp, s_ctx, wc, dp, 0, ws.x0, sh.np, s_x, S, N, D),
+                            B, stream)) != cudaSuccess)
+    return (int)err;
+  k2w_row_softmax<<<B * S, kThreads, 0, stream>>>(ws.x0, ws.x1, ws.row_m, ws.row_iz, text_start,
+                                                  sh, temp1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  k2w_col_softmax<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
+      ws.x0, ws.x1, ws.st.dot, sh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_product(k2p_ga2, args(ws.gram, sh.sp, s_g, ws.x1, sh.np, s_x, ws.x2, sh.np,
+                                          s_x, S, N, S), B, stream)) != cudaSuccess)
+    return (int)err;
+  k2w_pair_stats<<<dim3((T + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(
+      ws.x1, ws.x2, ws.wn, g, text_start, ws.st, sh, temp2, agg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  k2w_row_draw<<<B * S, kThreads, 0, stream>>>(ws.x0, ws.x1, ws.x2, ws.row_m, ws.row_iz,
+                                               text_start, ws.st, sh, temp1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_product(k2p_dgram, args(ws.x2, sh.np, s_x, ws.x1, sh.np, s_x, ws.gram, sh.sp,
+                                            s_g, S, S, N), B, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_product(k2p_dreg_words, args(ws.x0, sh.np, s_x, wc, dp, 0, dregions, D,
+                                                 (long long)S * D, S, D, N), B, stream))
+      != cudaSuccess)
+    return (int)err;
+  if ((err = launch_product(k2p_dreg_gram, args(ws.gram, sh.sp, s_g, ctx, dp, s_ctx, dregions, D,
+                                                (long long)S * D, S, D, S, 1.f, 1), B, stream))
+      != cudaSuccess)
+    return (int)err;
+  tf32x3::Args pw = args(ws.x0, sh.np, (long long)ipb * s_x, ctx, dp, (long long)ipb * s_ctx,
+                         ws.part, D, (long long)N * D, N, D, ipb * S);
+  pw.k_last = (B - (splits - 1) * ipb) * S;
+  if ((err = launch_product(k2p_dwords, pw, splits, stream)) != cudaSuccess) return (int)err;
+  k2w_scatter<<<T * W, kThreads, 0, stream>>>(ws.part, ws.st.dwn, ws.wn, words, col_of, dwords,
+                                              sh, splits);
   return (int)cudaGetLastError();
 }
 

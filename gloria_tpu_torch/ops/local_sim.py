@@ -19,8 +19,13 @@ and log of the sum / max / mean of ``exp(temp2 · cos)`` over valid words.
   raises.  :func:`fused_local_similarities` is the differentiable form, a
   :class:`LocalSimilarities` ``autograd.Function``: the forward kernel, and
   :func:`local_similarities_bwd` as its backward.  That wrapper launches
-  ``csrc/local_sim_bwd.cu`` on a CUDA tensor (counted in ``launches_bwd``)
-  or runs :func:`local_similarities_bwd_plain` on a CPU tensor.
+  ``csrc/local_sim_bwd.cu`` on a CUDA tensor (counted in ``launches_bwd``,
+  one per call) or runs :func:`local_similarities_bwd_plain` on a CPU
+  tensor.  The backward packs the valid words of all texts into one matrix
+  first (:func:`_pack_columns`) and runs the TPU kernel's Gram route as
+  dense passes over the images: tensor-core products at f32 accuracy
+  (``csrc/tf32x3_mma.cuh``) and elementwise passes, with no atomics, so its
+  result is the same bit for bit from call to call.
 """
 
 from __future__ import annotations
@@ -40,9 +45,8 @@ MAX_ABS_TEMP1 = 80.0
 launches = 0
 launches_bwd = 0
 _launch_lock = threading.Lock()
-# the backward kernel walks the (image, text) pairs with this many resident
-# blocks per SM; each block owns a scratch slice (see csrc/local_sim_bwd.cu)
-BWD_BLOCKS_PER_SM = 2
+# output tile of the backward's products (csrc/tf32x3_mma.cuh)
+BWD_TILE = 128
 
 
 def _check(words, regions, word_mask, temp1, agg):
@@ -157,10 +161,10 @@ def _library_bwd():
 
     lib = build(["local_sim_bwd"])["local_sim_bwd"].lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.local_sim_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, p]
+    lib.local_sim_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.local_sim_bwd.restype = i
-    lib.local_sim_bwd_scratch_floats.argtypes = [i, i, i]
-    lib.local_sim_bwd_scratch_floats.restype = ctypes.c_size_t
+    lib.local_sim_bwd_workspace_floats.argtypes = [i, i, i, i, i, i]
+    lib.local_sim_bwd_workspace_floats.restype = ctypes.c_size_t
     lib.local_sim_bwd_error_string.argtypes = [i]
     lib.local_sim_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -198,27 +202,69 @@ def _launch(words, regions, word_mask, temp1, temp2, agg):
     return out
 
 
+def _pack_columns(word_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The valid words of all texts as packed columns, text by text.
+
+    Returns ``cols`` [N] int64, the flat index ``t * W + w`` of each valid
+    word (so its text is ``cols // W`` and its word ``cols % W``);
+    ``col_text`` [N] int32, its text; and ``text_start`` [T + 1] int32, the
+    first column of each text (text t owns ``text_start[t]:text_start[t + 1]``).
+    N is read to the host once (``nonzero``)."""
+    valid = word_mask > 0
+    T, W = valid.shape
+    cols = valid.reshape(-1).nonzero().squeeze(1)
+    text_start = torch.zeros(T + 1, dtype=torch.int32, device=valid.device)
+    text_start[1:] = valid.sum(dim=1).cumsum(0)
+    return cols, (cols // max(W, 1)).to(torch.int32), text_start
+
+
+def _aligned(x: torch.Tensor, rows: int, cols: int, width: int) -> torch.Tensor:
+    """x viewed as [rows, cols] with rows padded to ``width`` floats and a
+    16-byte aligned start, as the products read it; x itself when it is
+    already so."""
+    if width == cols and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.zeros((rows, width), dtype=torch.float32, device=x.device)
+    out[:, :cols] = x.reshape(rows, cols)
+    return out
+
+
+def _dwords_splits(B: int, N: int, D: int, sms: int) -> tuple[int, int]:
+    """(splits, images per split) for the dwords product, whose contraction
+    runs over all images: enough image ranges that its tiles fill two waves
+    of the card's SMs, each range's partial sum added in order afterwards."""
+    tiles = -(-N // BWD_TILE) * -(-D // BWD_TILE)
+    per = -(-B // min(B, max(1, -(-2 * sms // max(tiles, 1)))))
+    return -(-B // per), per
+
+
 def _launch_bwd(words, regions, word_mask, g, temp1, temp2, agg):
     global launches_bwd
     T, W, D = words.shape
     B, S, _ = regions.shape
-    # the kernel adds every pair's share into zeroed outputs with atomics
-    dwords = torch.zeros_like(words)
-    dregions = torch.zeros_like(regions)
+    # every element of both is written by the kernels
+    dwords = torch.empty_like(words)
+    dregions = torch.empty_like(regions)
     if B == 0 or T == 0:
-        return dwords, dregions
-    mask = _float_mask(word_mask)
-    nw_cap = max(_max_valid(mask), 1)
+        return dwords.zero_(), dregions.zero_()
+    cols, _, text_start = _pack_columns(word_mask)
+    N = cols.numel()
+    dp = -(-D // 4) * 4
+    wc = _aligned(words.reshape(T * W, D).index_select(0, cols), N, D, dp)
+    ctx = _aligned(regions, B * S, D, dp)
+    col_of = torch.full((T * W,), -1, dtype=torch.int32, device=words.device)
+    col_of[cols] = torch.arange(N, dtype=torch.int32, device=words.device)
     sms = torch.cuda.get_device_properties(words.device).multi_processor_count
-    grid = min(B * T, BWD_BLOCKS_PER_SM * sms)
+    splits, per = _dwords_splits(B, N, D, sms)
     lib = _library_bwd()
-    scratch = torch.empty(grid * lib.local_sim_bwd_scratch_floats(S, D, nw_cap),
-                          dtype=torch.float32, device=words.device)
+    work = torch.empty(lib.local_sim_bwd_workspace_floats(B, T, S, D, N, splits),
+                       dtype=torch.float32, device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = lib.local_sim_bwd(words.data_ptr(), regions.data_ptr(), mask.data_ptr(), g.data_ptr(),
-                               dwords.data_ptr(), dregions.data_ptr(), scratch.data_ptr(), grid,
-                               B, T, S, W, D, nw_cap, temp1, temp2, AGGREGATIONS[agg], stream)
+        rc = lib.local_sim_bwd(ctx.data_ptr(), wc.data_ptr(), words.data_ptr(),
+                               text_start.data_ptr(), col_of.data_ptr(), g.data_ptr(),
+                               dwords.data_ptr(), dregions.data_ptr(), work.data_ptr(), B, T, S,
+                               W, D, dp, N, splits, per, temp1, temp2, AGGREGATIONS[agg], stream)
     if rc != 0:
         raise RuntimeError(
             f"local_sim_bwd launch failed: {lib.local_sim_bwd_error_string(rc).decode()}")
