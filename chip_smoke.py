@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    started together.
 3. kernel  — each kernel against its plain PyTorch version on probes.  K1
    (forward): the serving shape with and without the no-attention sink, the
-   eval and the train word masks, caption lengths 0, 1 and W-2, and B, T
-   above 128.  K2 (backward): the pretrain shape with and without the sink,
+   eval and the train word masks, caption lengths 0, 1 and W-2, B, T above
+   128, and a batch whose captions are all empty (every entry log(1e-8)).
+   K2 (backward): the pretrain shape with and without the sink,
    aggregations sum, mean and max, caption lengths 0, 1 and W-1 under the
    train mask, B, T above 128 at a narrower D, and a batch whose captions
    are all empty (no valid word: both gradients exactly 0).
@@ -30,8 +31,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    against the same model run on the CPU, where the local similarity is the
    plain version.
 5. kernels — K1 again at the inputs the serving path gave it: error against
-   the plain version, median time from CUDA events, the plain version's
-   time, and the bound computed from those inputs.
+   the plain version, two calls bitwise equal, median time from CUDA
+   events, the plain version's time, its bound at the f32 CUDA-core rate
+   and at the 3xTF32 rate its products run at, its device time per pass
+   (torch.profiler), its wrapper's time (the CUDA-event time less the
+   passes) and its workspace.
 6. train   — the same model from seed 0, in train mode with BERT dropout
    0.1 and the pretrain optimizer (Adam 0.5/0.999, coupled decay 1e-6,
    clip 0.25, lr 5e-5), takes one warm-up step and then five
@@ -39,9 +43,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    images); the launch counts are read around exactly those five steps.
    Losses finite, every reached parameter and every running statistic
    moved.  Step time and pairs/s from CUDA events, where the step's time
-   goes, and K1 and K2 at the inputs a step gave them: K2's bound at the
-   f32 CUDA-core rate and at the 3xTF32 rate its products run at, its
-   device time per pass (torch.profiler) and its workspace.
+   goes, and K1 and K2 at the inputs a step gave them, each as K1 in
+   phase 5: both bounds, device time per pass, workspace, bitwise repeat.
 7. card vs CPU — one step's loss, gradient norm and every parameter's
    gradient from the same weights and batch (8 pairs, dropout 0) on the
    card (kernels, cuDNN) and on the CPU (plain versions, oneDNN).
@@ -160,20 +163,33 @@ def _ops_bound(ops: float, nbytes: float, peak: float = H100_F32_FLOPS) -> tuple
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def local_sim_bound(words, regions, mask) -> tuple[float, str]:
-    """Least time for these inputs: the products of the cheaper of two
-    routes, counted over the valid words of every (image, text) pair, at the
-    f32 peak; against every input read once and the output written once at
-    the HBM rate.  Direct route (K1's): raw and the weighted context V,
-    4·S·D per valid word of each pair.  Gram route (the TPU kernel's): raw
-    and G·a2 for ‖V‖², 2·S·D + 2·S² per valid word of each pair, plus the
-    Gram 2·S²·D per image.  Softmax and exp work (under 2% of the
-    operations) is left out."""
+def local_sim_ops(words, regions, mask) -> tuple[int, int]:
+    """(operations, bytes) of the forward at these inputs: the products of
+    the cheaper of two routes, counted over the valid words of every
+    (image, text) pair; every input read once and the output written once.
+    Direct route: raw and the weighted context V, 4·S·D per valid word of
+    each pair.  Gram route (the TPU kernel's, and K1's): raw and G·a2 for
+    ‖V‖², 2·S·D + 2·S² per valid word of each pair, plus the Gram 2·S²·D
+    per image.  Softmax and exp work (under 2% of the operations) is left
+    out."""
     T, W, D = words.shape
     B, S, _ = regions.shape
     word_pairs = B * int((mask > 0).sum())  # every image pairs with every text
     ops = min(4 * S * D * word_pairs, (2 * S * D + 2 * S * S) * word_pairs + 2 * S * S * D * B)
-    return _ops_bound(ops, 4 * (words.numel() + regions.numel() + mask.numel() + B * T))
+    return ops, 4 * (words.numel() + regions.numel() + mask.numel() + B * T)
+
+
+def local_sim_bound(words, regions, mask) -> tuple[float, str]:
+    """Least time for these inputs at the f32 CUDA-core peak."""
+    return _ops_bound(*local_sim_ops(words, regions, mask))
+
+
+def local_sim_bound_3xtf32(words, regions, mask) -> tuple[float, str]:
+    """Least time for the same products as K1 does them: each f32 product
+    as three TF32 products at the TF32 tensor-core peak, 495/3 = 165
+    TFLOP/s of f32-accurate products."""
+    ops, nbytes = local_sim_ops(words, regions, mask)
+    return _ops_bound(3 * ops, nbytes, H100_TF32_FLOPS)
 
 
 def local_sim_bwd_ops(words, regions, mask, g) -> tuple[int, int]:
@@ -206,10 +222,67 @@ def local_sim_bwd_bound_3xtf32(words, regions, mask, g) -> tuple[float, str]:
     return _ops_bound(3 * ops, nbytes, H100_TF32_FLOPS)
 
 
+# K1's passes in launch order, by kernel name (csrc/local_sim_fwd.cu)
+K1_PASSES = ("k1w_word_norms", "k1p_gram", "k1p_raw", "k1w_row_softmax", "k1w_col_softmax",
+             "k1p_ga2", "k1w_pair_out")
 # K2's passes in launch order, by kernel name (csrc/local_sim_bwd.cu)
 K2_PASSES = ("k2w_word_norms", "k2p_gram", "k2p_raw", "k2w_row_softmax", "k2w_col_softmax",
              "k2p_ga2", "k2w_pair_stats", "k2w_row_draw", "k2p_dgram", "k2p_dreg_words",
              "k2p_dreg_gram", "k2p_dwords", "k2w_scatter")
+
+
+def k1_numbers(words, regions, mask, kw: dict, where: str, card: str, iters: int,
+               plain_iters: int) -> dict:
+    """K1 at one path's inputs: error against the plain version, two calls
+    bitwise equal, time (CUDA events), the plain version's time, both
+    bounds, device time per pass (torch.profiler), the wrapper's time (the
+    CUDA-event time less the passes), the workspace and the extra memory of
+    one call (workspace, packing, output)."""
+    import torch
+
+    from gloria_tpu_torch.ops import local_sim
+
+    def call():
+        return local_sim.local_similarities(words, regions, mask, **kw)
+
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    ref = local_sim.local_similarities_plain(words, regions, mask, **kw)
+    out = {"err": float((got - ref).abs().max())}
+    check(out["err"] <= KERNEL_TOL, f"local_sim_fwd vs plain at the {where} inputs: {out['err']}")
+    check(torch.equal(got, again), f"local_sim_fwd gives the same bits twice at the {where} inputs")
+    del got, again, ref
+    out["ms"] = cuda_ms(call, iters)
+    out["plain_ms"] = cuda_ms(
+        lambda: local_sim.local_similarities_plain(words, regions, mask, **kw), plain_iters)
+    out["bound_ms"], out["bound_by"] = local_sim_bound_3xtf32(words, regions, mask)
+    out["bound_f32_ms"], _ = local_sim_bound(words, regions, mask)
+    out["passes"] = device_ms(call, K1_PASSES)
+    passes_ms = sum(v or 0.0 for v in out["passes"].values())
+    products = sum(v or 0.0 for k, v in out["passes"].items() if k.startswith("k1p_"))
+    out["wrapper_ms"] = out["ms"] - passes_ms
+    (T, _, _), (B, S, _), N = words.shape, regions.shape, int((mask > 0).sum())
+    out["workspace_bytes"] = 4 * local_sim._library().local_sim_fwd_workspace_floats(B, T, S, N)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    out["extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"[kernels] local_sim_fwd at the {where} inputs: B={B} T={T} W={words.shape[1]} S={S} "
+        f"D={words.shape[2]}, {N} valid words; max_abs_err={out['err']:.3e}, bitwise equal over "
+        f"two calls; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms (not a "
+        f"yardstick), bound {out['bound_ms']:.4f} ms at the 3xTF32 rate ({out['bound_by']}), "
+        f"{out['bound_f32_ms']:.4f} ms at the f32 CUDA-core rate; workspace "
+        f"{out['workspace_bytes'] / 1e9:.3f} GB, one call's extra memory {out['extra_gb']:.3f} GB; "
+        f"no single PyTorch call computes this function [{card}]")
+    log(f"[kernels] local_sim_fwd per pass at the {where} inputs (torch.profiler device time, "
+        f"ms): " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not recorded"
+                             for k, v in out["passes"].items())
+        + f"; products {products:.4f}, elementwise {passes_ms - products:.4f}, all passes "
+        f"{passes_ms:.4f}, wrapper (packing, the read of N, launch gaps) {out['wrapper_ms']:.4f} "
+        f"[{card}]")
+    return out
 
 
 def grad_err(got, ref) -> tuple[float, float]:
@@ -267,6 +340,18 @@ def phase_kernel_probes() -> float:
         check(err <= KERNEL_TOL, f"local_sim_fwd vs plain ({name}): {err} > {KERNEL_TOL}")
         del words, regions, mask, got, ref
         torch.cuda.empty_cache()
+    words = torch.from_numpy(rng.randn(6, 97, 768).astype(np.float32)).cuda()
+    regions = torch.from_numpy(rng.randn(4, 362, 768).astype(np.float32)).cuda()
+    mask = torch.zeros(6, 97, dtype=torch.bool, device="cuda")
+    before = local_sim.launches
+    got = local_sim.local_similarities(words, regions, mask, agg="max")
+    torch.cuda.synchronize()
+    check(local_sim.launches == before + 1, "all captions empty: one local_sim_fwd launch")
+    err = float((got - float(np.log(np.float32(1e-8)))).abs().max())
+    worst = max(worst, err)
+    log(f"[kernel] local_sim_fwd all captions empty: B=4 T=6 W=97 S=362 D=768, every entry "
+        f"log(1e-8) within {err:.3e} (tol {KERNEL_TOL})")
+    check(err <= KERNEL_TOL, "all captions empty: every similarity log(1e-8)")
     return worst
 
 
@@ -387,41 +472,33 @@ def phase_train(card: str) -> dict:
     log(f"[train] step {step_ms:.2f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} pairs/s, peak "
         f"{peak_gb:.2f} GB allocated (CUDA events over {TRAIN_STEPS} steps) [{card}]")
 
-    # one more step, recording the inputs the step gives the two kernels
+    # one more step, recording the inputs the step gives the two kernels (through
+    # the helpers LocalSimilarities calls, which hand the forward's packed
+    # words to the backward)
     seen = {}
-    fwd, bwd = local_sim.local_similarities, local_sim.local_similarities_bwd
+    fwd, bwd = local_sim._similarities, local_sim._similarities_bwd
 
-    def record_fwd(words, regions, mask, **kw):
-        seen["fwd"] = (words, regions, mask, kw)
-        return fwd(words, regions, mask, **kw)
+    def record_fwd(words, regions, mask, temp1, temp2, agg):
+        seen["fwd"] = (words, regions, mask, {"temp1": temp1, "temp2": temp2, "agg": agg})
+        return fwd(words, regions, mask, temp1, temp2, agg)
 
-    def record_bwd(words, regions, mask, g, **kw):
-        seen["bwd"] = (words, regions, mask, g, kw)
-        return bwd(words, regions, mask, g, **kw)
+    def record_bwd(words, regions, mask, g, temp1, temp2, agg, packed=None):
+        seen["bwd"] = (words, regions, mask, g, {"temp1": temp1, "temp2": temp2, "agg": agg})
+        seen["bwd_packed"] = packed is not None
+        return bwd(words, regions, mask, g, temp1, temp2, agg, packed=packed)
 
-    local_sim.local_similarities, local_sim.local_similarities_bwd = record_fwd, record_bwd
+    local_sim._similarities, local_sim._similarities_bwd = record_fwd, record_bwd
     try:
         state, _ = train_step(state, batch)
     finally:
-        local_sim.local_similarities, local_sim.local_similarities_bwd = fwd, bwd
+        local_sim._similarities, local_sim._similarities_bwd = fwd, bwd
     torch.cuda.synchronize()
 
+    check(seen["bwd_packed"], "the backward reads the forward's packed words: one packing a step")
     out = {"step_ms": step_ms, "launches": launches, "peak_gb": peak_gb}
     words, regions, mask, kw = seen["fwd"]
-    got = local_sim.local_similarities(words, regions, mask, **kw)
-    out["k1_err"] = float((got - local_sim.local_similarities_plain(words, regions, mask, **kw))
-                          .abs().max())
-    check(out["k1_err"] <= KERNEL_TOL, "local_sim_fwd vs plain at the train step's inputs")
-    out["k1_ms"] = cuda_ms(lambda: local_sim.local_similarities(words, regions, mask, **kw), 5)
-    out["k1_plain_ms"] = cuda_ms(
-        lambda: local_sim.local_similarities_plain(words, regions, mask, **kw), 2)
-    out["k1_bound_ms"], out["k1_bound_by"] = local_sim_bound(words, regions, mask)
     valid = int(mask.sum())
-    log(f"[kernels] local_sim_fwd at the train step's inputs: B={regions.shape[0]} "
-        f"T={words.shape[0]} W={words.shape[1]} S={regions.shape[1]} D={words.shape[2]}, "
-        f"{valid} valid words; max_abs_err={out['k1_err']:.3e}; kernel {out['k1_ms']:.4f} ms, "
-        f"plain {out['k1_plain_ms']:.4f} ms, bound {out['k1_bound_ms']:.4f} ms "
-        f"({out['k1_bound_by']}) [{card}]")
+    out["k1"] = k1_numbers(words, regions, mask, kw, "train step's", card, 5, 2)
     words, regions, mask, g, kw = seen["bwd"]
     dw, dr = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
     pw, pr = local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw)
@@ -479,7 +556,7 @@ def phase_train(card: str) -> dict:
     out["parts"] = {name: cuda_ms(fn, 2, reps=3) for name, fn in parts.items()}
     out["parts"]["whole train step"] = step_ms
     log("[train] where a step goes (ms, each part timed alone): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in out["parts"].items()) + f"; K1 {out['k1_ms']:.2f}, "
+        f"{k} {v:.2f}" for k, v in out["parts"].items()) + f"; K1 {out['k1']['ms']:.2f}, "
         f"K2 {out['k2_ms']:.2f} [{card}]")
     del model, state, batch, opt
     torch.cuda.empty_cache()
@@ -907,30 +984,17 @@ def main() -> int:
         words = engine._txt_l
         mask = gloria_loss.make_word_mask(engine._caps, words.shape[1], "eval")
         regions = img_l.contiguous()
-        got = local_sim.local_similarities(words, regions, mask, agg="max")
-        ref = local_sim.local_similarities_plain(words, regions, mask, agg="max")
-        err = float((got - ref).abs().max())
-        check(err <= KERNEL_TOL, f"local_sim_fwd vs plain at the main path's inputs: {err}")
-        worst_err = max(worst_err, err)
-        k_ms = cuda_ms(lambda: local_sim.local_similarities(words, regions, mask, agg="max"), iters=20)
-        p_ms = cuda_ms(lambda: local_sim.local_similarities_plain(words, regions, mask, agg="max"),
-                       iters=3)
-        bound_ms, bound_by = local_sim_bound(words, regions, mask)
+        s1 = k1_numbers(words, regions, mask, {"agg": "max"}, "main path's", card, 20, 3)
+        worst_err = max(worst_err, s1["err"])
         classify_ms = cuda_ms(lambda: engine.classify(imgs), iters=3)
-    valid = int(mask.sum())
-    log(f"[kernels] local_sim_fwd at the main path's inputs: B={regions.shape[0]} T={words.shape[0]} "
-        f"W={words.shape[1]} S={regions.shape[1]} D={words.shape[2]}, {valid} valid words; "
-        f"max_abs_err={err:.3e}; kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms "
-        f"(not a yardstick), bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
-        f"computes this function [{card}]")
     log(f"[kernels] where classify(64) goes: {classify_ms:.2f} ms in all, image tower "
-        f"{tower_ms:.2f} ms, local_sim_fwd {k_ms:.3f} ms [{card}]")
-    del engine, gm, padded, img_l, words, regions, mask, got, ref
+        f"{tower_ms:.2f} ms, local_sim_fwd {s1['ms']:.3f} ms [{card}]")
+    del engine, gm, padded, img_l, words, regions, mask
     torch.cuda.empty_cache()
 
     # ---- 6. train: the pretrain step at full width -------------------------
     tr = phase_train(card)
-    worst_err = max(worst_err, tr["k1_err"])
+    worst_err = max(worst_err, tr["k1"]["err"])
     bwd_err, bwd_ratio = max(bwd_err, tr["k2_err"]), max(bwd_ratio, tr["k2_ratio"])
 
     # ---- 7. card vs CPU: one step's gradients -------------------------------
@@ -948,11 +1012,14 @@ def main() -> int:
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
         "launches": main_path_launches + tr["launches"][0],
         "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0]},
-        "max_abs_err": worst_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "train_ms": tr["k1_ms"], "train_plain_ms": tr["k1_plain_ms"],
-        "train_bound_ms": tr["k1_bound_ms"],
-    }, {
+        "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
+        "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
+        "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
+        "bound_f32_ms": s1["bound_f32_ms"], "library_ms": None, "passes_ms": s1["passes"],
+        "wrapper_ms": s1["wrapper_ms"], "workspace_bytes": s1["workspace_bytes"],
+    } | {f"train_{k}": tr["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "bound_f32_ms", "wrapper_ms", "workspace_bytes")}
+      | {"train_passes_ms": tr["k1"]["passes"]}, {
         "name": "local_sim_bwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",

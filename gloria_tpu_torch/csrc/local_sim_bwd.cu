@@ -25,7 +25,8 @@
 //   dregions[b] = draw Wc + dG ctx[b]
 //   dwords[t,w] = sum_b (draw[b]^T ctx[b])[n] + (sum_b dwn / |w|) w   (n = t, w's column)
 //
-// Passes, in launch order (kernel names as the profiler shows them):
+// Passes, in launch order (kernel names as the profiler shows them); the
+// first six are the forward's, local_sim_fwd_passes.cuh, shared with K1:
 //   k2w_word_norms   |Wc[n]|
 //   k2p_gram         G[b] = ctx ctx^T            [S, S], K = D      (product)
 //   k2p_raw          raw[b] = ctx Wc^T           [S, N], K = D      (product)
@@ -78,105 +79,16 @@
 #include <math.h>
 #include <stddef.h>
 
-#include "tf32x3_mma.cuh"
+#define LSIM_PREFIX k2
+#include "local_sim_fwd_passes.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// The shapes every pass reads.  np, sp, dp: leading dimensions (multiples
-// of 4) of the [B, S, N] work arrays, the Gram [B, S, S] and ctx / Wc.
-struct Shape {
-  int B, T, S, W, D, N, np, sp, dp;
-};
-
-// ---- products: one named kernel per pass, all the same routine ----------
-#define K2_PRODUCT(name, a_k, b_k)                                                         \
-  __global__ void __launch_bounds__(tf32x3::kThreads, 2) name(tf32x3::Args p) {            \
-    tf32x3::product<a_k, b_k>(p);                                                           \
-  }
-K2_PRODUCT(k2p_gram, true, true)        // ctx [S][D] . ctx [S][D]^T
-K2_PRODUCT(k2p_raw, true, true)         // ctx [S][D] . Wc [N][D]^T
-K2_PRODUCT(k2p_ga2, true, false)        // G [S][S] . a2 [S][N]
-K2_PRODUCT(k2p_dgram, true, true)       // wa2 [S][N] . a2 [S][N]^T
-K2_PRODUCT(k2p_dreg_words, true, false) // draw [S][N] . Wc [N][D]
-K2_PRODUCT(k2p_dreg_gram, true, false)  // dG [S][S] . ctx [S][D]
-K2_PRODUCT(k2p_dwords, false, false)    // draw [BS][N]^T . ctx [BS][D]
-#undef K2_PRODUCT
-
-// ---- elementwise and reduction passes --------------------------------------
-
-// wn[n] = sqrt(max(|Wc[n]|^2, 1e-12)), one warp per column.
-__global__ void __launch_bounds__(kThreads) k2w_word_norms(const float* __restrict__ wc,
-                                                           float* __restrict__ wn, Shape sh) {
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (n >= sh.N) return;
-  const float* row = wc + (size_t)n * sh.dp;
-  float acc = 0.f;
-  for (int d = lane; d < sh.D; d += 32) acc += row[d] * row[d];
-  acc = warp_sum(acc);
-  if (lane == 0) wn[n] = sqrtf(fmaxf(acc, 1e-12f));
-}
-
-// One block per row (b, s); warp w takes segments w, w + 8, ...  Writes the
-// segment's max and 1/sum of the word softmax and e2 = exp(temp1 a1 - shift).
-__global__ void __launch_bounds__(kThreads) k2w_row_softmax(
-    const float* __restrict__ raw, float* __restrict__ e2, float* __restrict__ row_m,
-    float* __restrict__ row_iz, const int* __restrict__ text_start, Shape sh, float temp1) {
-  const int row = blockIdx.x;  // b * S + s
-  const int lane = threadIdx.x & 31;
-  const float shift = fmaxf(temp1, 0.f);
-  const float* r = raw + (size_t)row * sh.np;
-  float* e = e2 + (size_t)row * sh.np;
-  for (int t = threadIdx.x >> 5; t < sh.T; t += kWarps) {
-    const int c0 = text_start[t], c1 = text_start[t + 1];
-    if (c0 == c1) continue;
-    float m = -INFINITY;
-    for (int n = c0 + lane; n < c1; n += 32) m = fmaxf(m, r[n]);
-    m = warp_max(m);
-    float z = 0.f;
-    for (int n = c0 + lane; n < c1; n += 32) z += expf(r[n] - m);
-    const float iz = 1.f / warp_sum(z);
-    if (lane == 0) {
-      row_m[(size_t)row * sh.T + t] = m;
-      row_iz[(size_t)row * sh.T + t] = iz;
-    }
-    for (int n = c0 + lane; n < c1; n += 32) e[n] = expf(temp1 * (expf(r[n] - m) * iz) - shift);
-  }
-}
-
-// One thread per column (b, n): a2 = e2 / sum_s e2 in place; dot = sum_s a2 raw.
-__global__ void __launch_bounds__(kThreads) k2w_col_softmax(const float* __restrict__ raw,
-                                                            float* __restrict__ a2,
-                                                            float* __restrict__ dot, Shape sh) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (n >= sh.N) return;
-  const size_t base = (size_t)b * sh.S * sh.np + n;
-  float z = 0.f;
-  for (int s = 0; s < sh.S; ++s) z += a2[base + (size_t)s * sh.np];
-  const float iz = 1.f / z;
-  float acc = 0.f;
-  for (int s = 0; s < sh.S; ++s) {
-    const size_t o = base + (size_t)s * sh.np;
-    const float v = a2[o] * iz;
-    a2[o] = v;
-    acc += v * raw[o];
-  }
-  dot[(size_t)b * sh.N + n] = acc;
-}
+// ---- the backward's own products (the forward's are in the shared header) ----
+LSIM_PRODUCT(k2p_dgram, true, true)        // wa2 [S][N] . a2 [S][N]^T
+LSIM_PRODUCT(k2p_dreg_words, true, false)  // draw [S][N] . Wc [N][D]
+LSIM_PRODUCT(k2p_dreg_gram, true, false)   // dG [S][S] . ctx [S][D]
+LSIM_PRODUCT(k2p_dwords, false, false)     // draw [BS][N]^T . ctx [BS][D]
 
 // Per-column statistics of one image, each [B, N].
 struct ColStats {
@@ -203,21 +115,13 @@ __global__ void __launch_bounds__(kThreads) k2w_pair_stats(
   if (c0 == c1) return;  // sims = log(1e-8) whatever the inputs: no gradient
   const size_t base = (size_t)b * sh.S * sh.np;
   const size_t col = (size_t)b * sh.N;
-  for (int n = c0 + lane; n < c1; n += 32) {
-    float acc = 0.f;
-    for (int s = 0; s < sh.S; ++s) {
-      const size_t o = base + (size_t)s * sh.np + n;
-      acc += a2[o] * ga2[o];
-    }
-    st.cn2[col + n] = acc;
-  }
+  for (int n = c0 + lane; n < c1; n += 32) st.cn2[col + n] = column_cn2(a2, ga2, base, n, sh);
   __syncwarp();
   // e = exp(temp2 cos) waits in ddot until the last loop, so the max's ties
   // compare the very values the sum and the max were taken over
   float esum = 0.f, emax = 0.f;
   for (int n = c0 + lane; n < c1; n += 32) {
-    const float den = fmaxf(wn[n] * sqrtf(fmaxf(st.cn2[col + n], 1e-12f)), 1e-8f);
-    const float e = expf(temp2 * (st.dot[col + n] / den));
+    const float e = column_exp(wn[n], st.cn2[col + n], st.dot[col + n], temp2);
     st.ddot[col + n] = e;
     esum += e;
     emax = fmaxf(emax, e);
@@ -315,8 +219,6 @@ __global__ void __launch_bounds__(kThreads) k2w_zero(float* __restrict__ x, size
     x[i] = 0.f;
 }
 
-size_t round4(size_t x) { return (x + 3) / 4 * 4; }
-
 // The workspace, carved in this order (each piece a multiple of 4 floats).
 struct Workspace {
   float *x0, *x1, *x2, *gram, *part, *row_m, *row_iz, *wn;
@@ -339,25 +241,6 @@ size_t carve(float* base, const Shape& sh, int splits, Workspace* ws) {
     off += round4(sizes[i]);
   }
   return off;
-}
-
-template <class Kernel>
-cudaError_t launch_product(Kernel kernel, const tf32x3::Args& p, int batch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         tf32x3::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  // all of the SM's 228 KB to shared memory, so two blocks fit
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kernel<<<tf32x3::grid_of(p, batch), tf32x3::kThreads, tf32x3::kSmemBytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-tf32x3::Args args(const float* a, int lda, long long sa, const float* b, int ldb, long long sb,
-                  float* c, int ldc, long long sc, int m, int n, int k, float alpha = 1.f,
-                  int accumulate = 0) {
-  return tf32x3::Args{a, b, c, m, n, k, k, lda, ldb, ldc, sa, sb, sc, alpha, accumulate};
 }
 
 }  // namespace
@@ -404,22 +287,10 @@ int local_sim_bwd(const float* ctx, const float* wc, const float* words, const i
   const long long s_ctx = (long long)S * dp, s_x = (long long)S * sh.np,
                   s_g = (long long)S * sh.sp;
 
-  k2w_word_norms<<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(wc, ws.wn, sh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_product(k2p_gram, args(ctx, dp, s_ctx, ctx, dp, s_ctx, ws.gram, sh.sp, s_g,
-                                           S, S, D), B, stream)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch_product(k2p_raw, args(ctx, dp, s_ctx, wc, dp, 0, ws.x0, sh.np, s_x, S, N, D),
-                            B, stream)) != cudaSuccess)
-    return (int)err;
-  k2w_row_softmax<<<B * S, kThreads, 0, stream>>>(ws.x0, ws.x1, ws.row_m, ws.row_iz, text_start,
-                                                  sh, temp1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  k2w_col_softmax<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
-      ws.x0, ws.x1, ws.st.dot, sh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_product(k2p_ga2, args(ws.gram, sh.sp, s_g, ws.x1, sh.np, s_x, ws.x2, sh.np,
-                                          s_x, S, N, S), B, stream)) != cudaSuccess)
+  if ((err = launch_fwd_passes(ctx, wc, text_start,
+                               FwdBuffers{ws.x0, ws.x1, ws.x2, ws.gram, ws.row_m, ws.row_iz,
+                                          ws.wn, ws.st.dot},
+                               sh, temp1, stream)) != cudaSuccess)
     return (int)err;
   k2w_pair_stats<<<dim3((T + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(
       ws.x1, ws.x2, ws.wn, g, text_start, ws.st, sh, temp2, agg);

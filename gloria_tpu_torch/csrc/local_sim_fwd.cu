@@ -1,49 +1,71 @@
-// Fused pairwise word-region local similarity, forward (eval and zero-shot).
+// Fused pairwise word-region local similarity, forward (serving, zero-shot,
+// and the local loss of a train step).
 //
 // Replaces gloria_tpu/ops/pallas/local_sim.py:_fwd_kernel (launched by
-// pallas_local_similarities, math in _forward_tile / _sims_from_tile).
+// pallas_local_similarities, math in _forward_tile / _sims_from_tile), and
+// takes its Gram route.
 //
-// For every image b and text t (regions ctx[b] in [S, D] with the sink, if
-// any, already prepended as region 0; words[t] in [W, D]; mask[t] in [W]):
+// For every image b (regions ctx[b] in [S, D], the sink, if any, already
+// prepended as region 0) and text t (its valid words):
 //   raw[s,w] = ctx[b,s] . words[t,w]
-//   a1[s,:]  = softmax over the valid words of raw[s,:]   (0 at masked words)
-//   a2[:,w]  = softmax over the regions of temp1 * a1[:,w]
-//   dot[w]   = sum_s a2[s,w] raw[s,w]
-//   cn2[w]   = |sum_s a2[s,w] ctx[b,s]|^2
-//   cos[w]   = dot[w] / max(|words[t,w]| sqrt(max(cn2[w], 1e-12)), 1e-8)
-//   e[w]     = exp(temp2 cos[w]) on valid words, 0 elsewhere
-//   out[b,t] = log(max(sum_w e | max_w e | sum_w e / n_valid, 1e-8))
-// with |words[t,w]| = sqrt(max(sum_d words^2, 1e-12)).
+//   a1[s,:]  = softmax over t's valid words of raw[s,:]
+//   a2[:,w]  = softmax over the regions of temp1 a1[:,w]
+//   dot[w]   = sum_s a2 raw,  cn2[w] = sum_s a2 (G a2),  G = ctx[b] ctx[b]^T
+//   cos[w]   = dot / max(|words[t,w]| sqrt(max(cn2, 1e-12)), 1e-8)
+//   out[b,t] = log(max(sum_w e | max_w e | sum_w e / n_valid, 1e-8)),  e = exp(temp2 cos)
+// with |w| = sqrt(max(sum_d w^2, 1e-12)); a text with no valid word gets
+// log(1e-8), as the plain version does for sum, max and mean alike.
 //
-// Design (one block of 256 threads per (b, t) pair, B*T blocks):
-//  * Masked words never touch the result, so each block first compacts the
-//    valid words of its text into a list and does all work on those alone.
-//    Zero-shot prompts fill about a tenth of the 97-word axis.
-//  * raw is one [S x nv] product (nv = valid words) tiled 64 x 32 through
-//    shared memory, kept whole in dynamic shared memory as f32.  The host
-//    sizes that buffer by the largest nv over the texts.
-//  * a1 lies in [0, 1], so the region-softmax logits temp1*a1 are bounded:
-//    e2 = exp(temp1*a1 - max(temp1, 0)) lies in [exp(-|temp1|), 1] and needs
-//    no running max (the wrapper rejects |temp1| > 80, where it could
-//    underflow).  One pass over the rows turns raw into e2 in place and
-//    accumulates Z[w] = sum_s e2 and N[w] = sum_s e2 raw, so dot = N / Z.
-//  * cn2 = |sum_s e2[s,w] ctx[b,s]|^2 / Z^2: a second [nv x S] x [S x D]
-//    product, tiled 32 x 64, whose squares are summed on the fly.  This
-//    costs 2 S nv D operations per pair, against 2 S^2 D / T + 2 S^2 nv for
-//    the TPU kernel's Gram-matrix route; fewer at zero-shot shapes.
-//  * Everything is f32 on the CUDA cores: no tensor cores yet.
-// What bounds it on an H100: operations.  At the serving shape (B=64,
-// T=25, S=362, D=768, W=97) the TPU kernel's route over the whole word axis
-// costs 2BTSWD (raw, 86.3 GFLOP) + 2BS^2D (Gram, 12.9) + 2BTS^2W (G a2,
-// 40.7) = 140 GFLOP, 2.1 ms at the 67 TFLOP/s f32 peak.  Over the valid
-// words only, this kernel's two products cost 2 * 2 * B * S * D * sum_t nv_t:
-// the CheXpert prompts hold sum_t nv_t = 185, so 13.2 GFLOP, 0.20 ms.  The
-// f32 inputs are 79 MB, 0.02 ms at 3.35 TB/s.  With many valid words the
-// Gram route is the cheaper one (2 S D + 2 S^2 per valid word of each pair,
-// plus 2 S^2 D per image): at the pretrain shape (B = T = 48, S = 361, 2160
-// valid words) 9.41e10 operations, 1.40 ms, against 1.15e11 for this
-// kernel's route.  chip_smoke.py computes the bound from each run's own
-// mask, by the cheaper route.
+// The wrapper (ops/local_sim.py) packs the valid words of all texts, text by
+// text, into Wc [N, D] (N = sum_t nv_t); text t owns columns
+// [text_start[t], text_start[t + 1]), and each text's softmax is a segment
+// of a row.  Passes, in launch order (kernel names as the profiler shows
+// them); the first six are local_sim_fwd_passes.cuh, shared with K2:
+//   k1w_word_norms   |Wc[n]|
+//   k1p_gram         G[b] = ctx ctx^T            [S, S], K = D      (product)
+//   k1p_raw          raw[b] = ctx Wc^T           [S, N], K = D      (product)
+//   k1w_row_softmax  per segment: max, 1/sum; e2 = exp(temp1 a1 - max(temp1, 0))
+//   k1w_col_softmax  per column: a2 = e2 / sum_s e2 (in place), dot
+//   k1p_ga2          G[b] a2, into raw's buffer  [S, N], K = S      (product)
+//   k1w_pair_out     one warp per (image, text): cn2 and e per column, the
+//                    aggregation, log(max(., 1e-8)) into out[b, t]
+// The three products are one routine, tf32x3_mma.cuh: tensor cores
+// (mma.sync m16n8k8 TF32, a 3-stage cp.async ring) at f32 accuracy by the
+// 3xTF32 split.  Two [B, S, N] work arrays, not three: once k1w_col_softmax
+// has read raw for dot, raw is dead, and G a2 is written into its buffer.
+//
+// What bounds it on an H100: operations.  This design's products cost
+// 2 S D N + 2 S^2 N per image plus the Gram's 2 S^2 D: at the pretrain step
+// (B = T = 48, S = 361, D = 768, N = 2160 for the synthetic batch of seed 0)
+// 9.41e10 operations, 1.40 ms at the 67 TFLOP/s f32 CUDA-core peak, or, as
+// 3xTF32 does them (three TF32 products each), 0.57 ms at the 495 TFLOP/s
+// TF32 peak.  At the serving shape (B = 64, T = 25 prompts, S = 362 with the
+// sink, N = 185) the same route costs 2.26e10 (the Gram 1.29e10 of it), where
+// the direct route (the weighted context V = a2^T ctx, 4 S D per valid word
+// of each pair) would cost 1.32e10: 0.196 ms at the f32 peak, 0.080 ms at
+// the 3xTF32 rate.  The bytes (inputs read once, the output written once)
+// are 8-79 MB, 0.002-0.024 ms at 3.35 TB/s.  The two [B, S, N] work arrays
+// (150 MB each at the pretrain shape) are written or read about 11 times
+// in all by the passes, about 1.6 GB, 0.5 ms: the floor of this design's
+// elementwise work there.  chip_smoke.py computes both bounds from
+// each run's own mask, by the cheaper route.
+//
+// What the design does about the per-pair kernel it replaces (one block of
+// 256 threads per (image, text) pair, f32 CUDA cores):
+//  * At the serving shape a block's 32-word tile held about 7 valid words,
+//    and each image's regions were re-read from L2 by all 25 of its text
+//    blocks.  Now the valid words of all texts are one matrix: each product
+//    is as wide as all of them (N = 185 serving, 2160 training), and ctx[b]
+//    is read once per 128-wide column tile.
+//  * Scalar FMA loops over padded shared-memory tiles become tensor-core
+//    products at f32 accuracy, fed by cp.async.
+//  * One thread compacted each text's valid words serially; now the wrapper
+//    packs them once per call on the device (nonzero + index_select), and a
+//    train step packs once for its forward and backward.
+//  * The wrapper read the largest valid-word count back to the host every
+//    call to size shared memory; the one device-to-host read left is N, the
+//    size of the packed matrix and of the workspace.
+// No atomics: two calls give the same bits.
 // Launches: one per InferenceEngine.classify chunk of at most max_batch
 // images, one per class in GloriaModel.zero_shot_classification, and one per
 // GLoRIA train or eval step (the local loss's similarity matrix).  No single
@@ -52,257 +74,88 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
-#include <stdint.h>
+#include <stddef.h>
+
+#define LSIM_PREFIX k1
+#include "local_sim_fwd_passes.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileS = 64;   // product 1: regions per tile
-constexpr int kTileW = 32;   // product 1: words per tile; product 2: words per tile
-constexpr int kTileK = 32;   // depth of one staged chunk
-constexpr int kTileD = 64;   // product 2: features per tile
-constexpr int kPad = kTileK + 1;
-// the staging area holds product 1's two chunks or product 2's ctx chunk
-constexpr int kStage = kTileS * kPad + kTileW * kPad;
-static_assert(kTileK * kTileD <= kStage, "product 2 chunk must fit the staging area");
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Dynamic shared memory, in order (floats unless noted):
-//   e[S * nw_cap]            raw, then e2, row-major [s][j]
-//   stage[kStage]            staged operand chunks
-//   part_z, part_n[kWarps * nw_cap]   per-warp partial Z, N
-//   z, n, cn2, wn[nw_cap]
-//   wl[nw_cap] (int)         compacted valid-word indices
-__global__ void __launch_bounds__(kThreads)
-local_sim_fwd_kernel(const float* __restrict__ words, const float* __restrict__ ctx_all,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     int T, int S, int W, int D, int nw_cap,
-                     float temp1, float temp2, int agg) {
-  extern __shared__ float smem[];
-  const int pair = blockIdx.x;
-  const int b = pair / T;
-  const int t = pair - b * T;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float* e = smem;
-  float* stage = e + (size_t)S * nw_cap;
-  float* part_z = stage + kStage;
-  float* part_n = part_z + kWarps * nw_cap;
-  float* zs = part_n + kWarps * nw_cap;
-  float* ns = zs + nw_cap;
-  float* cn2 = ns + nw_cap;
-  float* wn = cn2 + nw_cap;
-  int* wl = reinterpret_cast<int*>(wn + nw_cap);
-  __shared__ int nv_s;
-
-  const float* ctx = ctx_all + (size_t)b * S * D;
-  const float* wt = words + (size_t)t * W * D;
-  const float* mk = mask + (size_t)t * W;
-
-  // ---- compact the valid words -----------------------------------------
-  if (tid == 0) {
-    int n = 0;
-    for (int w = 0; w < W; ++w)
-      if (mk[w] > 0.f && n < nw_cap) wl[n++] = w;
-    nv_s = n;
+// One warp per (image, text) pair: cn2 and e = exp(temp2 cos) per column, then
+// the aggregation over the text's columns.  The max is taken over the very
+// values the sum is; a text with no column writes log(1e-8).
+__global__ void __launch_bounds__(kThreads) k1w_pair_out(
+    const float* __restrict__ a2, const float* __restrict__ ga2, const float* __restrict__ wn,
+    const float* __restrict__ dot, const int* __restrict__ text_start, float* __restrict__ out,
+    Shape sh, float temp2, int agg) {
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  if (t >= sh.T) return;
+  const int c0 = text_start[t], c1 = text_start[t + 1];
+  const size_t base = (size_t)b * sh.S * sh.np;
+  const size_t col = (size_t)b * sh.N;
+  float esum = 0.f, emax = 0.f;
+  for (int n = c0 + lane; n < c1; n += 32) {
+    const float e = column_exp(wn[n], column_cn2(a2, ga2, base, n, sh), dot[col + n], temp2);
+    esum += e;
+    emax = fmaxf(emax, e);
   }
-  __syncthreads();
-  const int nv = nv_s;
-  for (int i = tid; i < kWarps * nw_cap; i += kThreads) {
-    part_z[i] = 0.f;
-    part_n[i] = 0.f;
-  }
-  for (int j = tid; j < nw_cap; j += kThreads) cn2[j] = 0.f;
-
-  // ---- word norms: one warp per valid word -------------------------------
-  for (int j = warp; j < nv; j += kWarps) {
-    const float* row = wt + (size_t)wl[j] * D;
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32) acc += row[d] * row[d];
-    acc = warp_sum(acc);
-    if (lane == 0) wn[j] = sqrtf(fmaxf(acc, 1e-12f));
-  }
-
-  // ---- product 1: e[s][j] = ctx[s] . words[wl[j]] ------------------------
-  float* as = stage;                 // [kTileS][kPad]
-  float* bs = stage + kTileS * kPad; // [kTileW][kPad]
-  for (int s0 = 0; s0 < S; s0 += kTileS) {
-    for (int j0 = 0; j0 < nv; j0 += kTileW) {
-      float acc[4][2] = {};
-      for (int d0 = 0; d0 < D; d0 += kTileK) {
-        for (int i = tid; i < kTileS * kTileK; i += kThreads) {
-          const int r = i / kTileK, k = i - r * kTileK;
-          const int s = s0 + r, d = d0 + k;
-          as[r * kPad + k] = (s < S && d < D) ? ctx[(size_t)s * D + d] : 0.f;
-        }
-        for (int i = tid; i < kTileW * kTileK; i += kThreads) {
-          const int r = i / kTileK, k = i - r * kTileK;
-          const int j = j0 + r, d = d0 + k;
-          bs[r * kPad + k] = (j < nv && d < D) ? wt[(size_t)wl[j] * D + d] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < kTileK; ++k) {
-          float a[4], bv[2];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) a[ii] = as[(ty + 16 * ii) * kPad + k];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) bv[jj] = bs[(tx + 16 * jj) * kPad + k];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) acc[ii][jj] = fmaf(a[ii], bv[jj], acc[ii][jj]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int s = s0 + ty + 16 * ii;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = j0 + tx + 16 * jj;
-          if (s < S && j < nv) e[(size_t)s * nv + j] = acc[ii][jj];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- word softmax per region, then e2 in place; partial Z and N --------
-  const float shift = fmaxf(temp1, 0.f);
-  for (int s = warp; s < S; s += kWarps) {
-    float* row = e + (size_t)s * nv;
-    float m = -INFINITY;
-    for (int j = lane; j < nv; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < nv; j += 32) sum += expf(row[j] - m);
-    sum = warp_sum(sum);
-    for (int j = lane; j < nv; j += 32) {
-      const float r = row[j];
-      const float a1 = expf(r - m) / sum;
-      const float e2 = expf(temp1 * a1 - shift);
-      row[j] = e2;
-      part_z[warp * nw_cap + j] += e2;
-      part_n[warp * nw_cap + j] += e2 * r;
-    }
-  }
-  __syncthreads();
-  for (int j = tid; j < nv; j += kThreads) {
-    float z = 0.f, n = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      z += part_z[w * nw_cap + j];
-      n += part_n[w * nw_cap + j];
-    }
-    zs[j] = z;
-    ns[j] = n;
-  }
-
-  // ---- product 2: cn2[j] += |sum_s e[s][j] ctx[s]|^2 ---------------------
-  float* cs = stage;  // [kTileK][kTileD]
-  for (int j0 = 0; j0 < nv; j0 += kTileW) {
-    int jr[2];
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) jr[ii] = min(j0 + ty + 16 * ii, nv - 1);
-    for (int d0 = 0; d0 < D; d0 += kTileD) {
-      float acc[2][4] = {};
-      for (int s0 = 0; s0 < S; s0 += kTileK) {
-        for (int i = tid; i < kTileK * kTileD; i += kThreads) {
-          const int k = i / kTileD, c = i - k * kTileD;
-          const int s = s0 + k, d = d0 + c;
-          cs[i] = (s < S && d < D) ? ctx[(size_t)s * D + d] : 0.f;
-        }
-        __syncthreads();
-        const int kmax = min(kTileK, S - s0);
-        for (int k = 0; k < kmax; ++k) {
-          const float* erow = e + (size_t)(s0 + k) * nv;
-          float a[2], bv[4];
-#pragma unroll
-          for (int ii = 0; ii < 2; ++ii) a[ii] = erow[jr[ii]];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) bv[jj] = cs[k * kTileD + tx + 16 * jj];
-#pragma unroll
-          for (int ii = 0; ii < 2; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], bv[jj], acc[ii][jj]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int ii = 0; ii < 2; ++ii) {
-        float sq = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sq += acc[ii][jj] * acc[ii][jj];
-        // the 16 threads of one ty hold one word's 64 features: reduce them
-        for (int o = 8; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-        const int j = j0 + ty + 16 * ii;
-        if (tx == 0 && j < nv) cn2[j] += sq;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- cosine, exp and aggregation over the valid words (warp 0) ---------
-  if (warp == 0) {
-    float esum = 0.f, emax = 0.f;
-    for (int j = lane; j < nv; j += 32) {
-      const float z = zs[j];
-      const float dot = ns[j] / z;
-      const float c2 = fmaxf(cn2[j] / (z * z), 1e-12f);
-      const float denom = fmaxf(wn[j] * sqrtf(c2), 1e-8f);
-      const float ev = expf(temp2 * (dot / denom));
-      esum += ev;
-      emax = fmaxf(emax, ev);
-    }
-    esum = warp_sum(esum);
-    emax = warp_max(emax);
-    if (lane == 0) {
-      float v;
-      if (agg == 0) v = esum;
-      else if (agg == 1) v = emax;
-      else v = esum / (float)max(nv, 1);
-      out[(size_t)b * T + t] = logf(fmaxf(v, 1e-8f));
-    }
+  esum = warp_sum(esum);
+  emax = warp_max(emax);
+  if (lane == 0) {
+    const float v = agg == 0 ? esum : agg == 1 ? emax : esum / (float)max(c1 - c0, 1);
+    out[(size_t)b * sh.T + t] = logf(fmaxf(v, 1e-8f));
   }
 }
 
-size_t smem_bytes(int S, int nw_cap) {
-  return sizeof(float) * ((size_t)S * nw_cap + kStage + 2 * kWarps * nw_cap + 4 * nw_cap)
-         + sizeof(int) * (size_t)nw_cap;
+// The workspace, carved in this order (each piece a multiple of 4 floats).
+size_t carve(float* base, const Shape& sh, FwdBuffers* f) {
+  const size_t big = (size_t)sh.B * sh.S * sh.np;
+  const size_t sizes[] = {big, big, (size_t)sh.B * sh.S * sh.sp, (size_t)sh.B * sh.S * sh.T,
+                          (size_t)sh.B * sh.S * sh.T, (size_t)sh.N, (size_t)sh.B * sh.N};
+  float** slots[] = {&f->raw, &f->a2, &f->gram, &f->row_m, &f->row_iz, &f->wn, &f->dot};
+  size_t off = 0;
+  for (int i = 0; i < 7; ++i) {
+    if (base != nullptr) *slots[i] = base + off;
+    off += round4(sizes[i]);
+  }
+  f->ga2 = f->raw;  // raw is dead once k1w_col_softmax has read it
+  return off;
 }
 
 }  // namespace
 
 extern "C" {
 
-// words [T, W, D], ctx [B, S, D], mask [T, W] (float, > 0 = valid), out [B, T];
-// all f32, contiguous, on the device of `stream`.  nw_cap >= the largest
-// count of valid words in any mask row.  agg: 0 sum, 1 max, 2 mean.
-// Returns cudaGetLastError() after the launch.
-int local_sim_fwd(const float* words, const float* ctx, const float* mask, float* out,
-                  int B, int T, int S, int W, int D, int nw_cap,
-                  float temp1, float temp2, int agg, void* stream) {
-  const int cap = nw_cap > 0 ? nw_cap : 1;
-  const size_t smem = smem_bytes(S, cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      local_sim_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  local_sim_fwd_kernel<<<(unsigned)B * (unsigned)T, kThreads, smem, (cudaStream_t)stream>>>(
-      words, ctx, mask, out, T, S, W, D, cap, temp1, temp2, agg);
+// Floats of workspace one call needs; the wrapper allocates them.
+size_t local_sim_fwd_workspace_floats(int B, int T, int S, int N) {
+  const Shape sh{B, T, S, 0, 0, N, (int)round4(N), (int)round4(S), 0};
+  FwdBuffers sizes_only;
+  return carve(nullptr, sh, &sizes_only);
+}
+
+// ctx [B, S, dp] (the first D of each row used), wc [N, dp] (the packed valid
+// words, text by text), text_start [T + 1] (int); out [B, T] is written in
+// full; workspace of local_sim_fwd_workspace_floats(B, T, S, N) floats.  All
+// f32 unless noted, contiguous, on the device of `stream`; ctx, wc and the
+// workspace 16-byte aligned, dp a multiple of 4.  N = 0 (no valid word in
+// any text) launches k1w_pair_out alone.  agg: 0 sum, 1 max, 2 mean.
+// Returns the first launch error, or 0.
+int local_sim_fwd(const float* ctx, const float* wc, const int* text_start, float* out,
+                  float* workspace, int B, int T, int S, int D, int dp, int N, float temp1,
+                  float temp2, int agg, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Shape sh{B, T, S, 0, D, N, (int)round4(N), (int)round4(S), dp};
+  cudaError_t err;
+  FwdBuffers f{};
+  if (N > 0) {
+    carve(workspace, sh, &f);
+    if ((err = launch_fwd_passes(ctx, wc, text_start, f, sh, temp1, stream)) != cudaSuccess)
+      return (int)err;
+  }
+  k1w_pair_out<<<dim3((T + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(
+      f.a2, f.ga2, f.wn, f.dot, text_start, out, sh, temp2, agg);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,10 @@ and log of the sum / max / mean of ``exp(temp2 · cos)`` over valid words.
 - On a CUDA tensor :func:`local_similarities` launches the hand-written
   kernel ``gloria_tpu_torch/csrc/local_sim_fwd.cu`` (built with nvcc for
   sm_90a on first use, bound with ctypes) or raises.  It never falls back.
+  The wrapper packs the valid words of all texts into one matrix first
+  (:func:`_pack_words`), and the kernel runs the TPU kernel's Gram route as
+  dense passes over the images: tensor-core products at f32 accuracy
+  (``csrc/tf32x3_mma.cuh``) and elementwise passes, with no atomics.
 - On a CPU tensor it runs :func:`local_similarities_plain`, the same
   function in plain PyTorch (a port of ``gloria_loss.local_matching``'s
   math, unchunked).  The CPU tests and ``chip_smoke.py``'s comparison use
@@ -21,11 +25,11 @@ and log of the sum / max / mean of ``exp(temp2 · cos)`` over valid words.
   :func:`local_similarities_bwd` as its backward.  That wrapper launches
   ``csrc/local_sim_bwd.cu`` on a CUDA tensor (counted in ``launches_bwd``,
   one per call) or runs :func:`local_similarities_bwd_plain` on a CPU
-  tensor.  The backward packs the valid words of all texts into one matrix
-  first (:func:`_pack_columns`) and runs the TPU kernel's Gram route as
-  dense passes over the images: tensor-core products at f32 accuracy
-  (``csrc/tf32x3_mma.cuh``) and elementwise passes, with no atomics, so its
-  result is the same bit for bit from call to call.
+  tensor.  It runs the same forward passes (``csrc/local_sim_fwd_passes.cuh``,
+  shared by the two kernels) and then the backward's, over the same packed
+  words: a train step packs once, in the forward, and hands the packing to
+  the backward.  Neither kernel has atomics, so each result is the same bit
+  for bit from call to call.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -79,16 +84,32 @@ def _check(words, regions, word_mask, temp1, agg):
         raise ValueError("regions must hold at least one region")
 
 
+class _Packed(NamedTuple):
+    """The valid words of all texts as packed columns, on the card: what
+    both kernels read (:func:`_pack_words`)."""
+    cols: torch.Tensor        # [N] int64, the flat index t * W + w of each valid word
+    text_start: torch.Tensor  # [T + 1] int32, text t owns columns text_start[t]:text_start[t + 1]
+    wc: torch.Tensor          # [N, dp] f32, those words' rows, 16-byte aligned
+
+
 def local_similarities(words: torch.Tensor, regions: torch.Tensor, word_mask: torch.Tensor, *,
                        temp1: float = 4.0, temp2: float = 5.0, agg: str = "sum") -> torch.Tensor:
     """Similarities [B, T] f32.  CUDA tensors → the kernel; CPU tensors →
     the plain version."""
+    return _similarities(words, regions, word_mask, float(temp1), float(temp2), agg)[0]
+
+
+def _similarities(words, regions, word_mask, temp1, temp2, agg):
+    """:func:`local_similarities`, and the packed words the kernel read
+    (None on the CPU), for the backward to reuse."""
     _check(words, regions, word_mask, temp1, agg)
     if words.device.type == "cpu":
-        return local_similarities_plain(words, regions, word_mask, temp1=temp1, temp2=temp2, agg=agg)
+        return local_similarities_plain(words, regions, word_mask, temp1=temp1, temp2=temp2,
+                                        agg=agg), None
     if words.device.type != "cuda":
         raise ValueError(f"local_similarities runs on cuda or cpu tensors, got {words.device}")
-    return _launch(words, regions, word_mask, float(temp1), float(temp2), agg)
+    packed = _pack_words(words, word_mask)
+    return _launch(words, regions, packed, temp1, temp2, agg), packed
 
 
 def local_similarities_bwd(words: torch.Tensor, regions: torch.Tensor, word_mask: torch.Tensor,
@@ -97,6 +118,12 @@ def local_similarities_bwd(words: torch.Tensor, regions: torch.Tensor, word_mask
     """The backward of :func:`local_similarities`: ``g = dL/dsims [B, T]`` →
     ``(dwords [T, W, D], dregions [B, S, D])`` f32.  CUDA tensors → the
     kernel; CPU tensors → the plain version."""
+    return _similarities_bwd(words, regions, word_mask, g, float(temp1), float(temp2), agg)
+
+
+def _similarities_bwd(words, regions, word_mask, g, temp1, temp2, agg, packed=None):
+    """:func:`local_similarities_bwd`; on the card it reads ``packed``, the
+    forward's packed words of these words and mask, or packs them itself."""
     _check(words, regions, word_mask, temp1, agg)
     B, T = regions.shape[0], words.shape[0]
     if not isinstance(g, torch.Tensor) or g.dtype != torch.float32 or not g.is_contiguous():
@@ -109,13 +136,16 @@ def local_similarities_bwd(words: torch.Tensor, regions: torch.Tensor, word_mask
                                             temp2=temp2, agg=agg)
     if words.device.type != "cuda":
         raise ValueError(f"local_similarities_bwd runs on cuda or cpu tensors, got {words.device}")
-    return _launch_bwd(words, regions, word_mask, g, float(temp1), float(temp2), agg)
+    if packed is None:
+        packed = _pack_words(words, word_mask)
+    return _launch_bwd(words, regions, g, packed, temp1, temp2, agg)
 
 
 class LocalSimilarities(torch.autograd.Function):
     """Differentiable similarities [B, T]: :func:`local_similarities` forward,
     :func:`local_similarities_bwd` backward.  Gradients flow to words and
-    regions in their own shapes and dtypes; the mask gets none."""
+    regions in their own shapes and dtypes; the mask gets none.  On the card
+    the forward's packed words go to the backward, so a step packs once."""
 
     @staticmethod
     def forward(ctx, words, regions, word_mask, temp1, temp2, agg):
@@ -123,14 +153,16 @@ class LocalSimilarities(torch.autograd.Function):
         r = regions.detach().float().contiguous()
         m = word_mask.detach().contiguous()
         ctx.save_for_backward(w, r, m)
-        ctx.opts = dict(temp1=temp1, temp2=temp2, agg=agg)
+        ctx.opts = (temp1, temp2, agg)
         ctx.dtypes = (words.dtype, regions.dtype)
-        return local_similarities(w, r, m, **ctx.opts)
+        sims, ctx.packed = _similarities(w, r, m, temp1, temp2, agg)
+        return sims
 
     @staticmethod
     def backward(ctx, g):
         w, r, m = ctx.saved_tensors
-        dw, dr = local_similarities_bwd(w, r, m, g.float().contiguous(), **ctx.opts)
+        dw, dr = _similarities_bwd(w, r, m, g.float().contiguous(), *ctx.opts,
+                                   packed=ctx.packed)
         return dw.to(ctx.dtypes[0]), dr.to(ctx.dtypes[1]), None, None, None, None
 
 
@@ -148,8 +180,10 @@ def _library():
 
     lib = build(["local_sim_fwd"])["local_sim_fwd"].lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.local_sim_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+    lib.local_sim_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
     lib.local_sim_fwd.restype = i
+    lib.local_sim_fwd_workspace_floats.argtypes = [i, i, i, i]
+    lib.local_sim_fwd_workspace_floats.restype = ctypes.c_size_t
     lib.local_sim_error_string.argtypes = [i]
     lib.local_sim_error_string.restype = ctypes.c_char_p
     return lib
@@ -170,31 +204,23 @@ def _library_bwd():
     return lib
 
 
-def _float_mask(word_mask):
-    return word_mask.float() if word_mask.dtype == torch.bool else word_mask
-
-
-def _max_valid(mask) -> int:
-    """The largest count of valid words over the texts: the kernels size
-    their buffers by it, at one device→host read per call."""
-    return int((mask > 0).sum(dim=1).max())
-
-
-def _launch(words, regions, word_mask, temp1, temp2, agg):
+def _launch(words, regions, packed, temp1, temp2, agg):
     global launches
-    T, W, D = words.shape
+    T, _, D = words.shape
     B, S, _ = regions.shape
     out = torch.empty((B, T), dtype=torch.float32, device=words.device)
     if B == 0 or T == 0:
         return out
-    mask = _float_mask(word_mask)
-    nw_cap = _max_valid(mask)
+    N, dp = packed.cols.numel(), _row_floats(D)
+    ctx = _aligned(regions, B * S, D, dp)
     lib = _library()
+    work = torch.empty(lib.local_sim_fwd_workspace_floats(B, T, S, N), dtype=torch.float32,
+                       device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = lib.local_sim_fwd(words.data_ptr(), regions.data_ptr(), mask.data_ptr(),
-                               out.data_ptr(), B, T, S, W, D, nw_cap, temp1, temp2,
-                               AGGREGATIONS[agg], stream)
+        rc = lib.local_sim_fwd(ctx.data_ptr(), packed.wc.data_ptr(),
+                               packed.text_start.data_ptr(), out.data_ptr(), work.data_ptr(), B,
+                               T, S, D, dp, N, temp1, temp2, AGGREGATIONS[agg], stream)
     if rc != 0:
         raise RuntimeError(f"local_sim_fwd launch failed: {lib.local_sim_error_string(rc).decode()}")
     with _launch_lock:
@@ -218,6 +244,21 @@ def _pack_columns(word_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, 
     return cols, (cols // max(W, 1)).to(torch.int32), text_start
 
 
+def _row_floats(D: int) -> int:
+    """Floats per packed row: D rounded up to a multiple of 4 (16 bytes)."""
+    return -(-D // 4) * 4
+
+
+def _pack_words(words: torch.Tensor, word_mask: torch.Tensor) -> _Packed:
+    """The valid words' rows of ``words`` [T, W, D] under ``word_mask``,
+    packed text by text (:func:`_pack_columns`), as the kernels read them:
+    one ``nonzero`` (N read to the host) and one ``index_select``."""
+    T, W, D = words.shape
+    cols, _, text_start = _pack_columns(word_mask)
+    wc = words.reshape(T * W, D).index_select(0, cols)
+    return _Packed(cols, text_start, _aligned(wc, cols.numel(), D, _row_floats(D)))
+
+
 def _aligned(x: torch.Tensor, rows: int, cols: int, width: int) -> torch.Tensor:
     """x viewed as [rows, cols] with rows padded to ``width`` floats and a
     16-byte aligned start, as the products read it; x itself when it is
@@ -238,7 +279,12 @@ def _dwords_splits(B: int, N: int, D: int, sms: int) -> tuple[int, int]:
     return -(-B // per), per
 
 
-def _launch_bwd(words, regions, word_mask, g, temp1, temp2, agg):
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_bwd(words, regions, g, packed, temp1, temp2, agg):
     global launches_bwd
     T, W, D = words.shape
     B, S, _ = regions.shape
@@ -247,22 +293,18 @@ def _launch_bwd(words, regions, word_mask, g, temp1, temp2, agg):
     dregions = torch.empty_like(regions)
     if B == 0 or T == 0:
         return dwords.zero_(), dregions.zero_()
-    cols, _, text_start = _pack_columns(word_mask)
-    N = cols.numel()
-    dp = -(-D // 4) * 4
-    wc = _aligned(words.reshape(T * W, D).index_select(0, cols), N, D, dp)
+    N, dp = packed.cols.numel(), _row_floats(D)
     ctx = _aligned(regions, B * S, D, dp)
     col_of = torch.full((T * W,), -1, dtype=torch.int32, device=words.device)
-    col_of[cols] = torch.arange(N, dtype=torch.int32, device=words.device)
-    sms = torch.cuda.get_device_properties(words.device).multi_processor_count
-    splits, per = _dwords_splits(B, N, D, sms)
+    col_of[packed.cols] = torch.arange(N, dtype=torch.int32, device=words.device)
+    splits, per = _dwords_splits(B, N, D, _sm_count(words.device))
     lib = _library_bwd()
     work = torch.empty(lib.local_sim_bwd_workspace_floats(B, T, S, D, N, splits),
                        dtype=torch.float32, device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = lib.local_sim_bwd(ctx.data_ptr(), wc.data_ptr(), words.data_ptr(),
-                               text_start.data_ptr(), col_of.data_ptr(), g.data_ptr(),
+        rc = lib.local_sim_bwd(ctx.data_ptr(), packed.wc.data_ptr(), words.data_ptr(),
+                               packed.text_start.data_ptr(), col_of.data_ptr(), g.data_ptr(),
                                dwords.data_ptr(), dregions.data_ptr(), work.data_ptr(), B, T, S,
                                W, D, dp, N, splits, per, temp1, temp2, AGGREGATIONS[agg], stream)
     if rc != 0:

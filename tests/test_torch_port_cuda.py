@@ -8,8 +8,10 @@ machine that has only PyTorch and the CUDA toolkit:
 (``--noconftest`` because the repository's ``tests/conftest.py`` sets JAX
 up.)  Without a card every test here skips.  Tolerances against the plain
 versions, both sides f32 with TF32 off:
-- forward (K1): 1e-3 absolute on log-similarities of magnitude ~1-20; only
-  the summation order differs (cuBLAS products against tiled sums);
+- forward (K1): 1e-3 absolute on log-similarities of magnitude ~1-20; the
+  summation order differs, and the kernel's products run on the tensor
+  cores at f32 accuracy (3xTF32); it has no atomics, so two calls on the
+  same inputs agree bit for bit;
 - backward (K2): 1e-3 · max|grad| + 1e-6 per output; the summation order
   differs, and the kernel's products run on the tensor cores at f32
   accuracy (3xTF32: about 2^-21 relative per product); it has no atomics,
@@ -82,6 +84,51 @@ def test_cuda_tensor_never_takes_the_plain_path(card, monkeypatch):
     mask = torch.ones(2, 5, device=card)
     out = local_sim.local_similarities(words, regions, mask)
     assert out.shape == (3, 2) and out.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg,convention,T,B,W,S,D", [
+    ("max", "eval", 25, 64, 97, 362, 768),   # serving: 5 classes x 5 prompts, sink
+    ("sum", "train", 7, 5, 13, 41, 30),      # D not a multiple of 4: padded operands
+])
+def test_kernel_is_deterministic(card, agg, convention, T, B, W, S, D):
+    """Two calls on the same inputs give the same similarities bit for bit
+    (no atomics), one launch each, within tolerance of the plain version."""
+    rng = np.random.RandomState(6)
+    caps = rng.randint(0, W - 1, size=T)
+    caps[:3] = [0, 1, W - 2]
+    words = torch.from_numpy(rng.randn(T, W, D).astype(np.float32)).to(card)
+    regions = torch.from_numpy(rng.randn(B, S, D).astype(np.float32)).to(card)
+    mask = tgl.make_word_mask(torch.from_numpy(caps).to(card), W, convention)
+    before = local_sim.launches
+    first = local_sim.local_similarities(words, regions, mask, agg=agg)
+    second = local_sim.local_similarities(words, regions, mask, agg=agg)
+    torch.cuda.synchronize()
+    assert local_sim.launches == before + 2
+    assert torch.equal(first, second)
+    ref = local_sim.local_similarities_plain(words, regions, mask, agg=agg)
+    assert float((first - ref).abs().max()) <= KERNEL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+def test_kernel_all_captions_empty(card, agg):
+    """No valid word in any text (N = 0): every similarity is log(1e-8), and
+    the call still launches once."""
+    rng = np.random.RandomState(7)
+    words = torch.from_numpy(rng.randn(6, 97, 768).astype(np.float32)).to(card)
+    regions = torch.from_numpy(rng.randn(4, 362, 768).astype(np.float32)).to(card)
+    mask = torch.zeros(6, 97, dtype=torch.bool, device=card)
+    # leave NaN in the allocator's cache, where the wrapper's torch.empty finds it
+    stale = torch.full((4, 6), float("nan"), device=card)
+    del stale
+    before = local_sim.launches
+    got = local_sim.local_similarities(words, regions, mask, agg=agg)
+    torch.cuda.synchronize()
+    assert local_sim.launches == before + 1
+    assert got.shape == (4, 6) and bool((got == got[0, 0]).all())
+    # logf on the card is within 1 ulp (about 2e-6 here) of the host's log
+    assert abs(float(got[0, 0]) - float(np.log(np.float32(1e-8)))) <= 1e-5
 
 
 def _train_inputs(card, agg_seed, T, B, W, S, D, caps):

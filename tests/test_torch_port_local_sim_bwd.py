@@ -24,6 +24,7 @@ from gloria_tpu.ops import gloria_loss as gl
 from gloria_tpu.ops.pallas.local_sim import fused_local_similarities as pallas_fused
 from gloria_tpu_torch.ops import gloria_loss as tgl
 from gloria_tpu_torch.ops import local_sim
+from test_torch_port_local_sim import _mirror_fwd_passes
 
 GRAD_TOL = 1e-4
 BF16_GRAD_TOL = 3e-2
@@ -180,7 +181,9 @@ def test_bwd_wrapper_rejects_bad_inputs():
 #
 # ``csrc/local_sim_bwd.cu`` packs the valid words into columns and runs the
 # TPU kernel's Gram route as dense passes over the images.  ``_mirror_bwd``
-# repeats those passes in plain PyTorch, in the kernel's order and with its
+# repeats those passes in plain PyTorch (the forward's six through
+# ``test_torch_port_local_sim.py:_mirror_fwd_passes``, which K1's mirror
+# shares), in the kernel's order and with its
 # algebra (the segment softmax per text, the column sums over regions, the
 # identity c = Σ_s a2·da2 = ddot·dot + 2·dcn2·cn2, dG folded as one symmetric
 # product), so an error in that algebra shows here, before any card run.
@@ -197,32 +200,13 @@ EPS = local_sim.EPS
 def _mirror_bwd(words, regions, mask, g, *, temp1=4.0, temp2=5.0, agg="sum"):
     T, W, D = words.shape
     B, S, _ = regions.shape
-    cols, col_text, text_start = local_sim._pack_columns(mask)
-    N = cols.numel()
-    assert int(text_start[-1]) == N
-    if N == 0:
+    f = _mirror_fwd_passes(words, regions, mask, temp1=temp1, temp2=temp2)  # K2's first six
+    if f.cols.numel() == 0:
         return torch.zeros_like(words), torch.zeros_like(regions)
-    seg = col_text.long()
-    wc = words.reshape(T * W, D)[cols]                                # packed columns [N, D]
-    ctx = regions
-    wn = wc.square().sum(-1).clamp_min(1e-12).sqrt()                  # k2w_word_norms
-    gram = ctx @ ctx.transpose(1, 2)                                  # k2p_gram [B, S, S]
-    raw = ctx @ wc.T                                                  # k2p_raw [B, S, N]
-    # k2w_row_softmax: per segment max and 1/sum, e2 = exp(temp1·a1 − max(temp1, 0))
-    segs = seg.expand(B, S, N)
-    row_m = torch.full((B, S, T), -torch.inf).scatter_reduce(2, segs, raw, "amax")
-    ex = torch.exp(raw - row_m.gather(2, segs))
-    row_iz = 1.0 / torch.zeros(B, S, T).index_add(2, seg, ex)
-    a1 = ex * row_iz.gather(2, segs)
-    e2 = torch.exp(temp1 * a1 - max(temp1, 0.0))
-    a2 = e2 / e2.sum(1, keepdim=True)                                 # k2w_col_softmax
-    dot = (a2 * raw).sum(1)                                           # [B, N]
-    ga2 = gram @ a2                                                   # k2p_ga2
+    seg, segs, wc, wn, ctx, N = f.seg, f.segs, f.wc, f.wn, regions, f.cols.numel()
+    raw, a1, a2, dot, ga2 = f.raw, f.a1, f.a2, f.dot, f.ga2
+    cn2, cn, den, e = f.cn2, f.cn, f.den, f.e
     # k2w_pair_stats
-    cn2 = (a2 * ga2).sum(1)
-    cn = cn2.clamp_min(1e-12).sqrt()
-    den = (wn * cn).clamp_min(EPS)
-    e = torch.exp(temp2 * (dot / den))
     if agg == "max":
         emax = torch.zeros(B, T).scatter_reduce(1, seg.expand(B, N), e, "amax")
         hit = (e == emax[:, seg]).float()
@@ -245,7 +229,7 @@ def _mirror_bwd(words, regions, mask, g, *, temp1=4.0, temp2=5.0, agg="sum"):
     dregions = draw @ wc + dgram @ ctx                                # k2p_dreg_words, _gram
     part = torch.einsum("bsn,bsd->nd", draw, ctx)                     # k2p_dwords
     dwc = part + (dwn.sum(0) / wn.clamp_min(1e-12))[:, None] * wc     # k2w_scatter
-    dwords = torch.zeros(T * W, D).index_copy(0, cols, dwc).reshape(T, W, D)
+    dwords = torch.zeros(T * W, D).index_copy(0, f.cols, dwc).reshape(T, W, D)
     return dwords, dregions
 
 
