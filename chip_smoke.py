@@ -57,9 +57,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    cotangents from a seed, the launch counts read around exactly that run.
    Every output is held against the plain version (``fused_bn.tail_errors``
    / ``grad_errors``), on those tails and on probes (M = 1, M = 601, K and N
-   narrower than a tile, a channel whose z are all 0, gs1 = gs2 = 0,
+   narrower than a tile, K = 64 with N = 512 (K4's two passes; the tails at
+   K = 64 take its fused pass), a channel whose z are all 0, gs1 = gs2 = 0,
    gy3 = 0).  Per shape: kernel, plain version and cuBLAS's products alone,
-   from CUDA events, beside the bound; totals over the 16 tails.
+   from CUDA events, beside the bound; for K4 also with the L2 flushed
+   before each call, its device time per kernel (torch.profiler) and its
+   rates against the bound's bytes and operations; totals over the 16
+   tails.
 9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
@@ -133,6 +137,29 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def cold_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` of the time of one call of fn alone, from CUDA
+    events, with the 50 MB L2 flushed before each: a 256 MB buffer is
+    written between the calls, so fn finds its inputs in device memory, as
+    inside a backward it would."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        flush.fill_(i & 0xFF)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
     return statistics.median(times)
 
 
@@ -609,17 +636,22 @@ def phase_card_vs_cpu() -> None:
     check(backbone[0][1] <= STEP_BACKBONE_L2_TOL, "every ResNet gradient agrees with the CPU's")
 
 
-def tail_bounds(M: int, K: int, N: int) -> tuple[tuple[float, str], tuple[float, str]]:
-    """Least times of K3 and K4 at one tail shape, bf16 operations at the
-    tensor-core peak against each input read once and each output written
-    once: K3 2·M·K·N operations; y2, scale, shift and w read, y3, s1 and s2
-    written.  K4 4·M·K·N; y2, scale, shift, w, y3, gy3, gs1 and gs2 read,
-    dy2, dscale, dshift and dW written."""
-    fwd = _ops_bound(2 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 2 * M * N + 8 * N,
-                     H100_BF16_FLOPS)
-    bwd = _ops_bound(4 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 4 * M * N + 8 * N
-                     + 2 * M * K + 8 * K + 4 * K * N, H100_BF16_FLOPS)
+def tail_work(M: int, K: int, N: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(operations, bytes) of K3 and of K4 at one tail shape, each input read
+    once and each output written once: K3 2·M·K·N operations; y2, scale,
+    shift and w read, y3, s1 and s2 written.  K4 4·M·K·N; y2, scale, shift,
+    w, y3, gy3, gs1 and gs2 read, dy2, dscale, dshift and dW written."""
+    fwd = (2 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 2 * M * N + 8 * N)
+    bwd = (4 * M * K * N, 2 * M * K + 8 * K + 4 * K * N + 4 * M * N + 8 * N
+           + 2 * M * K + 8 * K + 4 * K * N)
     return fwd, bwd
+
+
+def tail_bounds(M: int, K: int, N: int) -> tuple[tuple[float, str], tuple[float, str]]:
+    """Least times of K3 and K4 at one tail shape (:func:`tail_work`), bf16
+    operations at the tensor-core peak against the bytes at the HBM rate."""
+    fwd, bwd = tail_work(M, K, N)
+    return _ops_bound(*fwd, H100_BF16_FLOPS), _ops_bound(*bwd, H100_BF16_FLOPS)
 
 
 def capture_tails() -> list[tuple]:
@@ -668,6 +700,11 @@ def capture_tails() -> list[tuple]:
     del model, imgs
     torch.cuda.empty_cache()
     return tails
+
+
+# K4's kernels, by the pass each runs: torch.profiler's device time is read per name
+K4_PASSES = {"prep": "fused_bn_bwd_prep", "dz": "fused_bn_bwd_dz", "dW": "fused_bn_bwd_dw",
+             "fused": "fused_bn_bwd_fused"}
 
 
 def phase_fused_tail(card: str) -> dict:
@@ -761,7 +798,8 @@ def phase_fused_tail(card: str) -> dict:
         return got, grads
 
     for name, M, K, N in (("M = 1", 1, 64, 256), ("M = 601", 601, 128, 512),
-                          ("K = 16, N = 32", 300, 16, 32), ("K = 24, N = 40", 601, 24, 40)):
+                          ("K = 16, N = 32", 300, 16, 32), ("K = 24, N = 40", 601, 24, 40),
+                          ("K = 64, N = 512", 4801, 64, 512)):
         args = (dev(prng.randn(M, K), torch.bfloat16), dev(prng.rand(K) + 0.5),
                 dev(prng.randn(K) * 0.2), dev(prng.randn(K, N) * 0.1))
         probe(name, args, (dev(prng.randn(M, N), torch.bfloat16), dev(prng.randn(N)),
@@ -809,22 +847,45 @@ def phase_fused_tail(card: str) -> dict:
                 lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf)), 10),
             "bwd_bound_ms": bb, "bwd_bound_by": bby,
         }
+        # the same three calls with the L2 flushed before each, as a backward finds them
+        row["bwd_ms_cold"] = cold_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2))
+        row["bwd_plain_ms_cold"] = cold_ms(
+            lambda: fused_bn.bottleneck_tail_bwd_plain(*args, y3, gy3, gs1, gs2))
+        row["bwd_library_ms_cold"] = cold_ms(
+            lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf)))
+        # the wrapper's host time a call, back to back (checks, plan, outputs, launches)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        for _ in range(20):
+            fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2)
+        row["bwd_host_ms"] = (time.perf_counter() - t_host) / 20 * 1e3
+        torch.cuda.synchronize()
         passes = device_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2),
-                           ("fused_bn_bwd_rows_kernel", "fused_bn_bwd_dw_kernel"))
-        row["bwd_rows_pass_ms"] = passes["fused_bn_bwd_rows_kernel"]
-        row["bwd_dw_pass_ms"] = passes["fused_bn_bwd_dw_kernel"]
+                           tuple(K4_PASSES.values()))
+        row["bwd_passes_ms"] = {p: passes[k] for p, k in K4_PASSES.items()}
         shapes.append(row)
+        ops, nbytes = tail_work(M, K, N)[1]
+        rates = ", ".join(f"{what} {nbytes / row[key] / 1e6:.0f} GB/s, {ops / row[key] / 1e9:.1f} "
+                          f"TFLOP/s" for what, key in (("warm", "bwd_ms"), ("cold", "bwd_ms_cold")))
         log(f"[fused tail] {row['layer']} M={M} K={K} N={N} (x{row['tails']}), ms per tail: "
             f"K3 {row['fwd_ms']:.4f}, plain {row['fwd_plain_ms']:.4f}, cuBLAS product alone "
             f"{row['fwd_library_ms']:.4f}, bound {fb:.4f} ({fby}); K4 {row['bwd_ms']:.4f}, plain "
             f"{row['bwd_plain_ms']:.4f}, cuBLAS products alone {row['bwd_library_ms']:.4f}, "
-            f"bound {bb:.4f} ({bby}); K4's passes (torch.profiler device time): rows "
-            f"{row['bwd_rows_pass_ms']}, dW {row['bwd_dw_pass_ms']} [{card}]")
+            f"bound {bb:.4f} ({bby}) [{card}]")
+        log(f"[fused tail] {row['layer']} K4 with the L2 flushed before each call: "
+            f"{row['bwd_ms_cold']:.4f} ms, plain {row['bwd_plain_ms_cold']:.4f}, cuBLAS products "
+            f"alone {row['bwd_library_ms_cold']:.4f}; its wrapper's host time a call "
+            f"{row['bwd_host_ms']:.4f} ms; K4's passes (torch.profiler device time, "
+            f"warm): " + ", ".join(f"{p} {v}" for p, v in row["bwd_passes_ms"].items())
+            + f"; K4 against its {nbytes / 1e6:.0f} MB and {ops / 1e9:.2f} GFLOP: {rates} "
+            f"[{card}]")
         del z_bf, w_bf, g_bf, y3
 
     out = {"launches": launches, "shapes": shapes, "worst": worst}
     for key in ("fwd", "bwd"):
-        for col in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        cols = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+            ("ms_cold", "plain_ms_cold", "library_ms_cold", "host_ms") if key == "bwd" else ())
+        for col in cols:
             out[f"{key}_{col}"] = sum(r["tails"] * r[f"{key}_{col}"] for r in shapes)
         by_bytes = sum(r["tails"] * r[f"{key}_bound_ms"] for r in shapes
                        if r[f"{key}_bound_by"] == "bytes")
@@ -835,6 +896,12 @@ def phase_fused_tail(card: str) -> dict:
         f"cuBLAS products alone {out['bwd_library_ms']:.4f}, bound {out['bwd_bound_ms']:.4f}; "
         f"worst error / tolerance K3 {worst['fwd'][1]:.3f}, K4 {worst['bwd'][1]:.3f}; phase "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
+    out["bwd_passes_ms"] = {p: sum(r["tails"] * (r["bwd_passes_ms"][p] or 0.0) for r in shapes)
+                            for p in K4_PASSES}
+    log(f"[fused tail] K4 over the 16 tails with the L2 flushed before each call (ms): "
+        f"{out['bwd_ms_cold']:.4f}, plain {out['bwd_plain_ms_cold']:.4f}, cuBLAS products alone "
+        f"{out['bwd_library_ms_cold']:.4f}; K4's passes (warm): "
+        + ", ".join(f"{p} {v:.4f}" for p, v in out["bwd_passes_ms"].items()) + f" [{card}]")
     del tails, cots
     torch.cuda.empty_cache()
     return out
@@ -1038,6 +1105,10 @@ def main() -> int:
         "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
         "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],
         "library_ms": ft[f"{key}_library_ms"],
+    } | ({"ms_cold": ft["bwd_ms_cold"], "plain_ms_cold": ft["bwd_plain_ms_cold"],
+          "library_ms_cold": ft["bwd_library_ms_cold"], "passes_ms": ft["bwd_passes_ms"],
+          "host_ms": ft["bwd_host_ms"]}
+         if key == "bwd" else {}) | {
         "library_call": "torch.matmul of the bf16 operands, the product"
                         + ("s" if key == "bwd" else "") + " alone (cuBLAS)",
         "over": "the 16 bottleneck tails of one ResNet-50 train step at B=48, 299 px",

@@ -35,8 +35,16 @@ dscale, dshift and dW in f32).
   or raise: they never fall back.  On CPU tensors the plain PyTorch versions
   :func:`bottleneck_tail_plain` and :func:`bottleneck_tail_bwd_plain` run;
   on a card nothing else calls them but the comparisons.
+- K4 runs ``fused_bn_bwd_prep`` (bf16(w) into a workspace, the summed
+  outputs zeroed), then the dz pass (dz = G·bf16(w)ᵀ per row tile, then
+  dy2, dscale, dshift) and the dW pass (dW = zᵀ·G over M split across one
+  wave of blocks), or where K ≤ 64 and N ≤ 256 one fused pass that takes
+  both products from each staged G tile; all on wgmma fed by TMA through a
+  ring of shared-memory stages.  Their tiles, splits and stages come from
+  :func:`_bwd_plan`, computed here so that the CPU tests check it; K and N
+  that are not multiples of 8 are padded with zeros for the call.
 - ``launches_fwd`` and ``launches_bwd`` count kernel launches, and only
-  those (one K4 call launches its two passes and counts once).
+  those (one K4 call launches its two or three kernels and counts once).
 - :func:`tail_errors` and :func:`grad_errors` hold outputs against a
   reference at the op's stated tolerances; the tests and ``chip_smoke.py``
   use them for the plain version against JAX and the kernels against the
@@ -46,11 +54,14 @@ dscale, dshift and dW in f32).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 import threading
 
 import torch
+
+from ..ops import local_sim
 
 launches_fwd = 0
 launches_bwd = 0
@@ -251,13 +262,116 @@ def _library_fwd():
     return lib
 
 
+# K4's launch plan.  The kernels' shared-memory limit (227 KB a block on an
+# H100), their deepest ring and the rows of M in one dW stage, as in
+# csrc/fused_bn_bwd.cu.
+_SMEM_LIMIT = 232448
+_MAX_STAGES = 8
+_DW_ROWS = 32
+_ATOM = 1024          # the ring's alignment slack
+_ROW_BYTES = 128      # one row of a 64-column block of bf16 values
+_BARRIER_BYTES = 2 * _MAX_STAGES * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class _BwdPlan:
+    """K4's launch plan for (M, K, N), K and N multiples of 8.
+
+    dz pass: tiles of ``dz_rows`` rows × ``dz_cols`` columns of K; tile t is
+    (row tile t // dz_k_tiles, K tile t % dz_k_tiles); block b of
+    ``dz_grid`` takes tiles b, b + dz_grid, ...  dW pass: tiles of
+    ``dw_cols`` channels × ``dw_width`` columns of N; unit u is (tile u //
+    dw_chunks, rows [32·(u % dw_chunks), +32)), tile = (K tile tile //
+    dw_n_tiles, N tile tile % dw_n_tiles); block b of ``dw_grid`` takes the
+    units [b·dw_units // dw_grid, (b + 1)·dw_units // dw_grid).  ``fused``
+    (K ≤ 64, N ≤ 256): one pass on the dz pass's tiles, grid and stages also
+    sums dW (all of it, dw_cols × dw_width) over each block's rows; the dW
+    pass's units, grid and stages are then 0."""
+    M: int
+    K: int
+    N: int
+    fused: bool
+    dz_rows: int
+    dz_cols: int
+    dz_k_tiles: int
+    dz_tiles: int
+    dz_grid: int
+    dz_stages: int
+    dw_cols: int
+    dw_width: int
+    dw_n_tiles: int
+    dw_chunks: int
+    dw_units: int
+    dw_grid: int
+    dw_stages: int
+    workspace_bytes: int  # bf16(w): 2·K·N
+
+    def dz_tiles_of(self, block: int) -> range:
+        return range(block, self.dz_tiles, self.dz_grid)
+
+    def dw_units_of(self, block: int) -> range:
+        return range(block * self.dw_units // self.dw_grid,
+                     (block + 1) * self.dw_units // self.dw_grid)
+
+
+def _width(n: int) -> int:
+    """The tile width for n columns: 64, 128 or 256 (a wgmma's widths)."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(M: int, K: int, N: int, sms: int) -> _BwdPlan:
+    """Tile widths, row tiles, M splits, stages and workspace of K4 at (M,
+    K, N), K and N multiples of 8, on a card with ``sms`` SMs (one block
+    each: the rings take most of an SM's shared memory).
+
+    Where K ≤ 64 and N ≤ 256 (ResNet-50's layer 1), one fused pass: tiles of
+    64 rows × the 64 channels, each block summing dW over its rows in
+    registers, so every input is read once.  Else two passes.  dz pass: a
+    tile spans all of K up to 256 columns (y3 and gy3 are then read once per
+    row), else 256-wide K tiles, and 128 rows (two consumer warpgroups,
+    which hide each other's latency, even where 64-row tiles would fill
+    more SMs; 64 when M ≤ 64).  The grid is a multiple of the K tiles, so a
+    block keeps one K tile.  dW pass: tiles of
+    64 channels (K ≤ 64) or 128, by up to 256 columns of N; the (tile,
+    32-row chunk) units split evenly over min(sms, units) blocks.  Each ring
+    takes as many stages as fit."""
+    dz_cols, dw_width = _width(K), _width(N)
+    if K <= 64 and N <= 256:
+        tiles = -(-M // 64)
+        # the ring's stages: y3, gy3, bf16(w), y2 (64 rows x 64 columns each)
+        # and the gs1 / gs2 slices; z, scale and shift, column sums, barriers
+        stage = 4 * 64 * _ROW_BYTES + 8 * 64
+        fixed = _ATOM + 64 * _ROW_BYTES + 8 * 64 + 4 * 8 * 64 + _BARRIER_BYTES
+        return _BwdPlan(M, K, N, True, 64, 64, 1, tiles, min(sms, tiles),
+                        min(_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage),
+                        64, dw_width, 1, 0, 0, 0, 0, 2 * K * N)
+    k_tiles = -(-K // dz_cols)
+    fill = max(k_tiles, sms // k_tiles * k_tiles)
+    dz_rows = 64 if M <= 64 else 128
+    dz_tiles = -(-M // dz_rows) * k_tiles
+    dz_stage = (2 * dz_rows + dz_cols) * _ROW_BYTES + 8 * 64  # + its slices of gs1, gs2
+    dz_fixed = _ATOM + 8 * dz_cols + dz_rows // 16 * 8 * dz_cols + _BARRIER_BYTES
+    dw_cols = 64 if K <= 64 else 128
+    dw_n_tiles, dw_chunks = -(-N // dw_width), -(-M // _DW_ROWS)
+    dw_units = -(-K // dw_cols) * dw_n_tiles * dw_chunks
+    # + its slices of scale, shift, gs1 and gs2
+    dw_stage = (dw_cols + 2 * dw_width) * _DW_ROWS * 2 + 8 * (dw_cols + dw_width)
+    return _BwdPlan(
+        M, K, N, False, dz_rows, dz_cols, k_tiles, dz_tiles, min(dz_tiles, fill),
+        min(_MAX_STAGES, (_SMEM_LIMIT - dz_fixed) // dz_stage),
+        dw_cols, dw_width, dw_n_tiles, dw_chunks, dw_units, min(sms, dw_units),
+        min(_MAX_STAGES, (_SMEM_LIMIT - _ATOM - _BARRIER_BYTES) // dw_stage),
+        2 * K * N)
+
+
 @functools.cache
 def _library_bwd():
     from ..utils.cuda_build import build
 
     lib = build(["fused_bn_bwd"])["fused_bn_bwd"].lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_bn_bwd.argtypes = [p] * 12 + [ctypes.c_longlong, i, i, p]
+    lib.fused_bn_bwd.argtypes = [p] * 13 + [ctypes.c_longlong, i, i] + [i] * 9 + [p]
     lib.fused_bn_bwd.restype = i
     lib.fused_bn_bwd_error_string.argtypes = [i]
     lib.fused_bn_bwd_error_string.restype = ctypes.c_char_p
@@ -284,25 +398,52 @@ def _launch_fwd(y2, scale, shift, w, M, K, N):
     return y3, s1, s2
 
 
+def _padded(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """x in a zeroed tensor of ``shape`` (x's own shape or wider) that starts
+    on a 16-byte boundary, as TMA reads it; x itself when it already does."""
+    if tuple(x.shape) == shape and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros(shape)
+    out[tuple(slice(0, n) for n in x.shape)] = x
+    return out
+
+
 def _launch_bwd(y2, scale, shift, w, y3, gy3, gs1, gs2, M, K, N):
     global launches_bwd
     lib = _library_bwd()
     dev = y2.device
-    dy2 = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
-    # dscale, dshift and dw are sums over row tiles, added with atomics
-    dscale = torch.zeros(K, dtype=torch.float32, device=dev)
-    dshift = torch.zeros(K, dtype=torch.float32, device=dev)
-    dw = torch.zeros((K, N), dtype=torch.float32, device=dev)
     if M == 0 or K == 0 or N == 0:
-        return dy2.zero_(), dscale, dshift, dw
+        return (torch.zeros((M, K), dtype=torch.bfloat16, device=dev),
+                *(torch.zeros(K, dtype=torch.float32, device=dev) for _ in range(2)),
+                torch.zeros((K, N), dtype=torch.float32, device=dev))
+    # TMA reads rows whose stride is a multiple of 16 bytes: K and N go up to
+    # multiples of 8, the added channels and columns zero (their z, G and
+    # gradients are then 0), and the outputs are cut back
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    y2p, y3p, gy3p = _padded(y2, (M, Kp)), _padded(y3, (M, Np)), _padded(gy3, (M, Np))
+    scale_p, shift_p, wp = _padded(scale, (Kp,)), _padded(shift, (Kp,)), _padded(w, (Kp, Np))
+    gs1p, gs2p = _padded(gs1, (Np,)), _padded(gs2, (Np,))
+    plan = _bwd_plan(M, Kp, Np, local_sim._sm_count(dev))
+    # every output element is written by the kernels: dy2 by the dz pass;
+    # dscale, dshift and dw (one allocation) are zeroed by the prep kernel,
+    # then summed into
+    dy2 = torch.empty((M, Kp), dtype=torch.bfloat16, device=dev)
+    sums = torch.empty(2 * Kp + Kp * Np, dtype=torch.float32, device=dev)
+    dscale, dshift, dw = sums[:Kp], sums[Kp:2 * Kp], sums[2 * Kp:].view(Kp, Np)
+    wb = torch.empty(plan.workspace_bytes // 2, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_bn_bwd(y2.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
-                              y3.data_ptr(), gy3.data_ptr(), gs1.data_ptr(), gs2.data_ptr(),
-                              dy2.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), dw.data_ptr(),
-                              M, K, N, stream)
+        rc = lib.fused_bn_bwd(
+            y2p.data_ptr(), scale_p.data_ptr(), shift_p.data_ptr(), wp.data_ptr(),
+            y3p.data_ptr(), gy3p.data_ptr(), gs1p.data_ptr(), gs2p.data_ptr(),
+            dy2.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), dw.data_ptr(), wb.data_ptr(),
+            M, Kp, Np, plan.fused, plan.dz_rows, plan.dz_cols, plan.dz_grid, plan.dz_stages,
+            plan.dw_cols, plan.dw_width, plan.dw_grid, plan.dw_stages, stream)
     if rc != 0:
         raise RuntimeError(f"fused_bn_bwd launch failed: {lib.fused_bn_bwd_error_string(rc).decode()}")
     with _launch_lock:
         launches_bwd += 1
+    if (Kp, Np) != (K, N):
+        dy2, dscale, dshift = dy2[:, :K].contiguous(), dscale[:K].contiguous(), dshift[:K].contiguous()
+        dw = dw[:K, :N].contiguous()
     return dy2, dscale, dshift, dw

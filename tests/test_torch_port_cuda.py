@@ -18,10 +18,12 @@ versions, both sides f32 with TF32 off:
   so two calls on the same inputs agree bit for bit;
 - the fused bottleneck tail (K3 forward, K4 backward) against its plain
   version, bf16 products with f32 sums on both sides (cuBLAS with
-  reduced-precision bf16 reductions off): the tolerances of
-  ``fused_bn.tail_errors`` and ``fused_bn.grad_errors`` (y3 within one bf16
-  ulp, at most 1e-3 of its entries differing; s1, s2 at 1e-4; dy2 at one
-  ulp of its largest entry; dscale, dshift, dW at 1e-3 of their largest).
+  reduced-precision bf16 reductions off; K4's wgmma sums in its own
+  order): the tolerances of ``fused_bn.tail_errors`` and
+  ``fused_bn.grad_errors`` (y3 within one bf16 ulp, at most 1e-3 of its
+  entries differing; s1, s2 at 1e-4; dy2 at one ulp of its largest entry;
+  dscale, dshift, dW at 1e-3 of their largest: f32 sums in another order,
+  which K4's atomics change from call to call).
 """
 
 import numpy as np
@@ -250,6 +252,12 @@ def _assert_within(errors):
 @pytest.mark.parametrize("M,K,N", [
     (1, 16, 32), (48, 16, 32), (601, 24, 40), (600, 128, 128), (601, 128, 512),
     (4800, 512, 2048),  # ResNet-50's layer-4 tail at B=48, 299 px
+    # K4's tile paths: K = 64 with N = 256 (the fused pass) and N = 512 (the
+    # two passes: a 64-wide dz tile, a 64-channel dW warpgroup), M <= 64 (64-row
+    # dz tiles), K = 256 (one 256-wide dz tile), K = 512 (two, with a ragged
+    # last row tile), and K, N not multiples of 8 (padded by the wrapper)
+    (601, 64, 256), (601, 64, 512), (48, 128, 512), (601, 256, 1024), (4801, 512, 2048),
+    (300, 20, 36),
 ])
 def test_fused_tail_kernels_match_plain(card, M, K, N):
     args, (gy3, gs1, gs2) = _tail_inputs(card, M, K, N, seed=M + K + N)
@@ -287,3 +295,21 @@ def test_fused_tail_on_the_card_never_takes_the_plain_path(card, monkeypatch):
     assert (fused_bn.launches_fwd, fused_bn.launches_bwd) == (before[0] + 1, before[1] + 1)
     _assert_within(fused_bn.tail_errors(outs, y3_ref))
     _assert_within(fused_bn.grad_errors([a.grad for a in leaves], grads_ref))
+
+
+@pytest.mark.cuda
+def test_fused_tail_bwd_zero_channel_gets_exact_zero_gradients(card):
+    """A channel whose z are all 0 (y2·scale + shift ≤ 0 on every row) gets
+    dy2, dscale and dshift exactly 0 from K4, one launch per call."""
+    args, (gy3, gs1, gs2) = _tail_inputs(card, 601, 64, 256, seed=23)
+    y2, scale, shift, w = (a.clone() for a in args)
+    y2[:, 0] = y2[:, 0].abs()
+    scale[0], shift[0] = -scale[0].abs() - 0.5, -shift[0].abs() - 0.1
+    y3 = fused_bn.bottleneck_tail_fwd(y2, scale, shift, w)[0]
+    before = fused_bn.launches_bwd
+    dy2, dscale, dshift, dw = fused_bn.bottleneck_tail_bwd(y2, scale, shift, w, y3, gy3, gs1, gs2)
+    torch.cuda.synchronize()
+    assert fused_bn.launches_bwd == before + 1
+    assert bool((dy2[:, 0] == 0).all()) and float(dscale[0]) == 0.0 and float(dshift[0]) == 0.0
+    ref = fused_bn.bottleneck_tail_bwd_plain(y2, scale, shift, w, y3, gy3, gs1, gs2)
+    _assert_within(fused_bn.grad_errors((dy2, dscale, dshift, dw), ref))
