@@ -59,11 +59,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    / ``grad_errors``), on those tails and on probes (M = 1, M = 601, K and N
    narrower than a tile, K = 64 with N = 512 (K4's two passes; the tails at
    K = 64 take its fused pass), a channel whose z are all 0, gs1 = gs2 = 0,
-   gy3 = 0).  Per shape: kernel, plain version and cuBLAS's products alone,
-   from CUDA events, beside the bound; for K4 also with the L2 flushed
-   before each call, its device time per kernel (torch.profiler) and its
-   rates against the bound's bytes and operations; totals over the 16
-   tails.
+   gy3 = 0).  Per shape, for K3 and for K4: kernel, plain version and
+   cuBLAS's products alone, from CUDA events, beside the bound, also with
+   the L2 flushed before each call; the device time per kernel
+   (torch.profiler); the wrapper's host time a call; the rates against the
+   bound's bytes and operations; K3's y3, s1 and s2 bit for bit over two
+   calls (it has no atomics); totals over the 16 tails.
 9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
@@ -702,9 +703,19 @@ def capture_tails() -> list[tuple]:
     return tails
 
 
-# K4's kernels, by the pass each runs: torch.profiler's device time is read per name
-K4_PASSES = {"prep": "fused_bn_bwd_prep", "dz": "fused_bn_bwd_dz", "dW": "fused_bn_bwd_dw",
+# K3's and K4's kernels, by the pass each runs: torch.profiler's device time is read per name
+K3_PASSES = {"prep": "fused_bn_prep", "main": "fused_bn_fwd_main", "stats": "fused_bn_fwd_stats"}
+K4_PASSES = {"prep": "fused_bn_prep", "dz": "fused_bn_bwd_dz", "dW": "fused_bn_bwd_dw",
              "fused": "fused_bn_bwd_fused"}
+
+
+def bitwise_repeat(fn) -> tuple[bool, ...]:
+    """Whether two calls of fn give the same bits, output by output."""
+    import torch
+
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    return tuple(bool(torch.equal(a, b)) for a, b in zip(first, second))
 
 
 def phase_fused_tail(card: str) -> dict:
@@ -833,75 +844,84 @@ def phase_fused_tail(card: str) -> dict:
         w_bf = w.to(torch.bfloat16)
         g_bf = (gy3.float() + gs1 + 2.0 * y3.float() * gs2).to(torch.bfloat16)
         (fb, fby), (bb, bby) = tail_bounds(M, K, N)
-        row = {
-            "layer": name.split(".")[0], "M": M, "K": K, "N": N,
-            "tails": layers[name.split(".")[0]][3],
-            "fwd_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_fwd(*args), 10),
-            "fwd_plain_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_plain(*args), 10),
-            "fwd_library_ms": cuda_ms(lambda: torch.matmul(z_bf, w_bf), 10),
-            "fwd_bound_ms": fb, "fwd_bound_by": fby,
-            "bwd_ms": cuda_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2), 10),
-            "bwd_plain_ms": cuda_ms(
-                lambda: fused_bn.bottleneck_tail_bwd_plain(*args, y3, gy3, gs1, gs2), 10),
-            "bwd_library_ms": cuda_ms(
-                lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf)), 10),
-            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+        calls = {  # key -> (kernel, plain version, cuBLAS's products alone)
+            "fwd": (lambda: fused_bn.bottleneck_tail_fwd(*args),
+                    lambda: fused_bn.bottleneck_tail_plain(*args),
+                    lambda: torch.matmul(z_bf, w_bf)),
+            "bwd": (lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2),
+                    lambda: fused_bn.bottleneck_tail_bwd_plain(*args, y3, gy3, gs1, gs2),
+                    lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf))),
         }
-        # the same three calls with the L2 flushed before each, as a backward finds them
-        row["bwd_ms_cold"] = cold_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2))
-        row["bwd_plain_ms_cold"] = cold_ms(
-            lambda: fused_bn.bottleneck_tail_bwd_plain(*args, y3, gy3, gs1, gs2))
-        row["bwd_library_ms_cold"] = cold_ms(
-            lambda: (torch.matmul(g_bf, w_bf.t()), torch.matmul(z_bf.t(), g_bf)))
-        # the wrapper's host time a call, back to back (checks, plan, outputs, launches)
-        torch.cuda.synchronize()
-        t_host = time.perf_counter()
-        for _ in range(20):
-            fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2)
-        row["bwd_host_ms"] = (time.perf_counter() - t_host) / 20 * 1e3
-        torch.cuda.synchronize()
-        passes = device_ms(lambda: fused_bn.bottleneck_tail_bwd(*args, y3, gy3, gs1, gs2),
-                           tuple(K4_PASSES.values()))
-        row["bwd_passes_ms"] = {p: passes[k] for p, k in K4_PASSES.items()}
+        row = {"layer": name.split(".")[0], "M": M, "K": K, "N": N,
+               "tails": layers[name.split(".")[0]][3],
+               "fwd_bound_ms": fb, "fwd_bound_by": fby, "bwd_bound_ms": bb, "bwd_bound_by": bby}
+        for key, (kernel, plain, library) in calls.items():
+            row[f"{key}_ms"] = cuda_ms(kernel, 10)
+            row[f"{key}_plain_ms"] = cuda_ms(plain, 10)
+            row[f"{key}_library_ms"] = cuda_ms(library, 10)
+            # the same three calls with the L2 flushed before each, as a step finds them
+            row[f"{key}_ms_cold"] = cold_ms(kernel)
+            row[f"{key}_plain_ms_cold"] = cold_ms(plain)
+            row[f"{key}_library_ms_cold"] = cold_ms(library)
+            # the wrapper's host time a call, back to back (checks, plan, outputs, launches)
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            for _ in range(20):
+                kernel()
+            row[f"{key}_host_ms"] = (time.perf_counter() - t_host) / 20 * 1e3
+            torch.cuda.synchronize()
+            names = K3_PASSES if key == "fwd" else K4_PASSES
+            passes = device_ms(kernel, tuple(names.values()))
+            row[f"{key}_passes_ms"] = {p: passes[k] for p, k in names.items()}
+        # K3 twice on the same inputs: y3, s1 and s2 bit for bit
+        row["fwd_bitwise"] = dict(zip(("y3", "s1", "s2"), bitwise_repeat(calls["fwd"][0])))
         shapes.append(row)
-        ops, nbytes = tail_work(M, K, N)[1]
-        rates = ", ".join(f"{what} {nbytes / row[key] / 1e6:.0f} GB/s, {ops / row[key] / 1e9:.1f} "
-                          f"TFLOP/s" for what, key in (("warm", "bwd_ms"), ("cold", "bwd_ms_cold")))
         log(f"[fused tail] {row['layer']} M={M} K={K} N={N} (x{row['tails']}), ms per tail: "
             f"K3 {row['fwd_ms']:.4f}, plain {row['fwd_plain_ms']:.4f}, cuBLAS product alone "
             f"{row['fwd_library_ms']:.4f}, bound {fb:.4f} ({fby}); K4 {row['bwd_ms']:.4f}, plain "
             f"{row['bwd_plain_ms']:.4f}, cuBLAS products alone {row['bwd_library_ms']:.4f}, "
             f"bound {bb:.4f} ({bby}) [{card}]")
-        log(f"[fused tail] {row['layer']} K4 with the L2 flushed before each call: "
-            f"{row['bwd_ms_cold']:.4f} ms, plain {row['bwd_plain_ms_cold']:.4f}, cuBLAS products "
-            f"alone {row['bwd_library_ms_cold']:.4f}; its wrapper's host time a call "
-            f"{row['bwd_host_ms']:.4f} ms; K4's passes (torch.profiler device time, "
-            f"warm): " + ", ".join(f"{p} {v}" for p, v in row["bwd_passes_ms"].items())
-            + f"; K4 against its {nbytes / 1e6:.0f} MB and {ops / 1e9:.2f} GFLOP: {rates} "
-            f"[{card}]")
+        for key, what in (("fwd", "K3"), ("bwd", "K4")):
+            ops, nbytes = tail_work(M, K, N)[0 if key == "fwd" else 1]
+            rates = ", ".join(
+                f"{when} {nbytes / row[col] / 1e6:.0f} GB/s, {ops / row[col] / 1e9:.1f} TFLOP/s"
+                for when, col in (("warm", f"{key}_ms"), ("cold", f"{key}_ms_cold")))
+            log(f"[fused tail] {row['layer']} {what} with the L2 flushed before each call: "
+                f"{row[f'{key}_ms_cold']:.4f} ms, plain {row[f'{key}_plain_ms_cold']:.4f}, cuBLAS "
+                f"alone {row[f'{key}_library_ms_cold']:.4f}; its wrapper's host time a call "
+                f"{row[f'{key}_host_ms']:.4f} ms; {what}'s kernels (torch.profiler device time, "
+                f"warm): " + ", ".join(f"{p} {v}" for p, v in row[f"{key}_passes_ms"].items())
+                + f"; {what} against its {nbytes / 1e6:.0f} MB and {ops / 1e9:.2f} GFLOP: "
+                f"{rates} [{card}]")
+        log(f"[fused tail] {row['layer']} K3 bitwise equal over two calls: "
+            + ", ".join(f"{k} {v}" for k, v in row["fwd_bitwise"].items()))
         del z_bf, w_bf, g_bf, y3
 
     out = {"launches": launches, "shapes": shapes, "worst": worst}
-    for key in ("fwd", "bwd"):
-        cols = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-            ("ms_cold", "plain_ms_cold", "library_ms_cold", "host_ms") if key == "bwd" else ())
-        for col in cols:
+    for key, names in (("fwd", K3_PASSES), ("bwd", K4_PASSES)):
+        for col in ("ms", "plain_ms", "library_ms", "bound_ms", "ms_cold", "plain_ms_cold",
+                    "library_ms_cold", "host_ms"):
             out[f"{key}_{col}"] = sum(r["tails"] * r[f"{key}_{col}"] for r in shapes)
         by_bytes = sum(r["tails"] * r[f"{key}_bound_ms"] for r in shapes
                        if r[f"{key}_bound_by"] == "bytes")
         out[f"{key}_bound_by"] = "bytes" if 2 * by_bytes >= out[f"{key}_bound_ms"] else "operations"
+        out[f"{key}_passes_ms"] = {p: sum(r["tails"] * (r[f"{key}_passes_ms"][p] or 0.0)
+                                          for r in shapes) for p in names}
+    out["fwd_bitwise"] = all(all(r["fwd_bitwise"].values()) for r in shapes)
     log(f"[fused tail] over the 16 tails of one step (ms): K3 {out['fwd_ms']:.4f}, plain "
         f"{out['fwd_plain_ms']:.4f}, cuBLAS product alone {out['fwd_library_ms']:.4f}, bound "
         f"{out['fwd_bound_ms']:.4f}; K4 {out['bwd_ms']:.4f}, plain {out['bwd_plain_ms']:.4f}, "
         f"cuBLAS products alone {out['bwd_library_ms']:.4f}, bound {out['bwd_bound_ms']:.4f}; "
         f"worst error / tolerance K3 {worst['fwd'][1]:.3f}, K4 {worst['bwd'][1]:.3f}; phase "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
-    out["bwd_passes_ms"] = {p: sum(r["tails"] * (r["bwd_passes_ms"][p] or 0.0) for r in shapes)
-                            for p in K4_PASSES}
-    log(f"[fused tail] K4 over the 16 tails with the L2 flushed before each call (ms): "
-        f"{out['bwd_ms_cold']:.4f}, plain {out['bwd_plain_ms_cold']:.4f}, cuBLAS products alone "
-        f"{out['bwd_library_ms_cold']:.4f}; K4's passes (warm): "
-        + ", ".join(f"{p} {v:.4f}" for p, v in out["bwd_passes_ms"].items()) + f" [{card}]")
+    for key, what in (("fwd", "K3"), ("bwd", "K4")):
+        log(f"[fused tail] {what} over the 16 tails with the L2 flushed before each call (ms): "
+            f"{out[f'{key}_ms_cold']:.4f}, plain {out[f'{key}_plain_ms_cold']:.4f}, cuBLAS alone "
+            f"{out[f'{key}_library_ms_cold']:.4f}; wrapper host time {out[f'{key}_host_ms']:.4f}; "
+            f"{what}'s kernels (warm): "
+            + ", ".join(f"{p} {v:.4f}" for p, v in out[f"{key}_passes_ms"].items()) + f" [{card}]")
+    log(f"[fused tail] K3 bitwise equal over two calls at every tail shape: {out['fwd_bitwise']}")
+    check(out["fwd_bitwise"], "K3's y3, s1 and s2 repeat bit for bit (no atomics)")
     del tails, cots
     torch.cuda.empty_cache()
     return out
@@ -1105,10 +1125,8 @@ def main() -> int:
         "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
         "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],
         "library_ms": ft[f"{key}_library_ms"],
-    } | ({"ms_cold": ft["bwd_ms_cold"], "plain_ms_cold": ft["bwd_plain_ms_cold"],
-          "library_ms_cold": ft["bwd_library_ms_cold"], "passes_ms": ft["bwd_passes_ms"],
-          "host_ms": ft["bwd_host_ms"]}
-         if key == "bwd" else {}) | {
+    } | {col: ft[f"{key}_{col}"] for col in ("ms_cold", "plain_ms_cold", "library_ms_cold",
+                                               "passes_ms", "host_ms")} | {
         "library_call": "torch.matmul of the bf16 operands, the product"
                         + ("s" if key == "bwd" else "") + " alone (cuBLAS)",
         "over": "the 16 bottleneck tails of one ResNet-50 train step at B=48, 299 px",

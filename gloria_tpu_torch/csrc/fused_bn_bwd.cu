@@ -18,10 +18,10 @@
 // 512, 2048): 0.020 ms.
 //
 // The design.  The two products contract over different axes (dz over N,
-// per row; dW over M, the long axis).  A call launches fused_bn_bwd_prep,
-// which writes bf16(w) once into the caller's workspace and zeroes dscale,
-// dshift and dW, then either two passes or, where K <= 64 and N <= 256,
-// one:
+// per row; dW over M, the long axis).  A call launches fused_bn_prep
+// (fused_bn_tail.cuh, shared with K3), which writes bf16(w) once into the
+// caller's workspace and zeroes dscale, dshift and dW, then either two
+// passes or, where K <= 64 and N <= 256, one:
 //  * fused_bn_bwd_dz, the dz pass: persistent blocks walk output tiles of
 //    128 rows (64 when M <= 64) x all of K up to 256 (two 256-wide tiles at
 //    K = 512), so y3 and gy3 are read once per row while K <= 256.  Its
@@ -71,59 +71,25 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "fused_bn_tail.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace fused_tail;
 using sm90::kAtomBytes;
 using sm90::kBlockCols;
 using sm90::kRowBytes;
 
-constexpr int kWarpgroup = 128;
-constexpr int kMaxStages = 8;
 constexpr int kDwRows = 32;           // rows of M in one stage of the dW pass
-constexpr int kSmemLimit = 232448;    // dynamic shared memory a block may use (227 KB)
-constexpr int kBarrierBytes = 2 * kMaxStages * 8;
 
 // launcher errors beside CUDA's own (fused_bn_bwd_error_string)
 constexpr int kErrPlan = -1;
 constexpr int kErrShape = -2;
 constexpr int kErrTensorMap = -3;
 
-__device__ __forceinline__ float bn_apply(float y, float scale, float shift) {
-  return __fadd_rn(__fmul_rn(y, scale), shift);
-}
-
 __device__ __forceinline__ float cotangent(float y3, float gy3, float gs1, float gs2) {
   return __fadd_rn(__fadd_rn(gy3, gs1), __fmul_rn(__fmul_rn(2.f, y3), gs2));
-}
-
-// the eight bf16 values of a 16-byte group as f32 (exact: the bits move up)
-__device__ __forceinline__ void unpack8(uint4 v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
-}
-
-// eight f32 values from a 32-byte-aligned shared-memory address, two 16-byte loads
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
 // adds part (dscale at columns k, k + 1, dshift at k, k + 1) summed over the
@@ -176,51 +142,6 @@ __device__ __forceinline__ void prologue_groups(int tid, Setup setup, unsigned c
     for (int i = 0; i < kRows; ++i)
       reinterpret_cast<uint4*>(tile)[b * (kDwRows * 8) + (r0 + i * kSpace) * 8 + p] =
           use(r0 + i * kSpace, y[i], o[i]);
-  }
-}
-
-// registers a thread of the producer warpgroup keeps, and of a consumer
-// warpgroup takes, in the kernels with two consumer warpgroups (168 each at
-// launch: 384 threads share the SM's 65536)
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-
-// the ring and its barriers start on a 1024-byte boundary (the swizzle's period)
-__device__ __forceinline__ unsigned char* align_ring(unsigned char* raw) {
-  const uint32_t a = sm90::smem_addr(raw);
-  return raw + (((a + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1)) - a);
-}
-
-// a consumer warp's release of a stage (empty barriers count 4 per warpgroup)
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) sm90::mbar_arrive(bar);
-}
-
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, int stages,
-                                              int consumer_warps) {
-  for (int s = 0; s < stages; ++s) {
-    sm90::mbar_init(full + s, 1);
-    sm90::mbar_init(empty + s, consumer_warps);
-  }
-  sm90::mbar_init_fence();
-}
-
-// bf16(w) into the workspace; dscale, dshift and dW zeroed (the passes add into them)
-__global__ void __launch_bounds__(256)
-fused_bn_bwd_prep(const float* __restrict__ w, bf16* __restrict__ wb, float* __restrict__ dw,
-                  float* __restrict__ dscale, float* __restrict__ dshift, int64_t kn4, int K) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t i = first; i < kn4; i += stride) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(w) + i);
-    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
-    reinterpret_cast<uint2*>(wb)[i] = *reinterpret_cast<const uint2*>(h);
-    reinterpret_cast<float4*>(dw)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int64_t i = first; i < K; i += stride) {
-    dscale[i] = 0.f;
-    dshift[i] = 0.f;
   }
 }
 
@@ -942,10 +863,8 @@ int fused_bn_bwd(const void* y2, const float* scale, const float* shift, const f
                static_cast<bf16*>(dy2), static_cast<bf16*>(wb), dscale, dshift, dw,
                (int)M, K, N, static_cast<cudaStream_t>(stream)};
 
-  const int64_t kn4 = (int64_t)K * N / 4;
-  const int prep_blocks = (int)((kn4 + 255) / 256 < 1024 ? (kn4 + 255) / 256 : 1024);
-  fused_bn_bwd_prep<<<prep_blocks, 256, 0, a.stream>>>(w, a.wb, dw, dscale, dshift, kn4, K);
-  int err = (int)cudaGetLastError();
+  // bf16(w) into the workspace; dscale, dshift and dW zeroed (the passes add into them)
+  int err = launch_prep(w, a.wb, dw, dscale, dshift, K, N, a.stream);
   if (err != 0) return err;
 
   if (fused) {

@@ -35,16 +35,26 @@ dscale, dshift and dW in f32).
   or raise: they never fall back.  On CPU tensors the plain PyTorch versions
   :func:`bottleneck_tail_plain` and :func:`bottleneck_tail_bwd_plain` run;
   on a card nothing else calls them but the comparisons.
-- K4 runs ``fused_bn_bwd_prep`` (bf16(w) into a workspace, the summed
+- K3 runs ``fused_bn_prep`` (bf16(w) into a workspace), then the main pass
+  (persistent blocks over units of 128 rows by a chunk of N; z made once
+  per row tile and block and kept in shared memory over all of K while
+  bf16(w) streams through a ring, wgmma, y3 stored 16 bytes a lane, the
+  column sums of the rounded y3 added per warpgroup into rows of partial
+  sums) and the stats pass (the partial sums added in row order): no
+  atomics, so two calls give the same bits.  Its units, grid and stages
+  come from :func:`_fwd_plan`.
+- K4 runs ``fused_bn_prep`` (bf16(w) into a workspace, the summed
   outputs zeroed), then the dz pass (dz = G·bf16(w)ᵀ per row tile, then
   dy2, dscale, dshift) and the dW pass (dW = zᵀ·G over M split across one
   wave of blocks), or where K ≤ 64 and N ≤ 256 one fused pass that takes
   both products from each staged G tile; all on wgmma fed by TMA through a
   ring of shared-memory stages.  Their tiles, splits and stages come from
-  :func:`_bwd_plan`, computed here so that the CPU tests check it; K and N
-  that are not multiples of 8 are padded with zeros for the call.
+  :func:`_bwd_plan`, computed here so that the CPU tests check it.  For
+  both kernels K and N that are not multiples of 8 are padded with zeros
+  for the call.
 - ``launches_fwd`` and ``launches_bwd`` count kernel launches, and only
-  those (one K4 call launches its two or three kernels and counts once).
+  those (a K3 call launches three kernels, a K4 call two or three, and
+  each call counts once).
 - :func:`tail_errors` and :func:`grad_errors` hold outputs against a
   reference at the op's stated tolerances; the tests and ``chip_smoke.py``
   use them for the plain version against JAX and the kernels against the
@@ -53,6 +63,7 @@ dscale, dshift and dW in f32).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -255,22 +266,88 @@ def _library_fwd():
 
     lib = build(["fused_bn_fwd"])["fused_bn_fwd"].lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_bn_fwd.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, p]
+    lib.fused_bn_fwd.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 5 + [p]
     lib.fused_bn_fwd.restype = i
     lib.fused_bn_fwd_error_string.argtypes = [i]
     lib.fused_bn_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-# K4's launch plan.  The kernels' shared-memory limit (227 KB a block on an
-# H100), their deepest ring and the rows of M in one dW stage, as in
-# csrc/fused_bn_bwd.cu.
+# The kernels' shared-memory limit (227 KB a block on an H100), their
+# deepest ring and the rows of M in one stage of K4's dW pass, as in
+# csrc/fused_bn_tail.cuh and csrc/fused_bn_bwd.cu.
 _SMEM_LIMIT = 232448
 _MAX_STAGES = 8
 _DW_ROWS = 32
 _ATOM = 1024          # the ring's alignment slack
 _ROW_BYTES = 128      # one row of a 64-column block of bf16 values
 _BARRIER_BYTES = 2 * _MAX_STAGES * 8
+# K3's units are 128 rows (two consumer warpgroups of 64); a ring stage
+# holds a box of y2 (128 rows x 64 channels) or a chunk of bf16(w), 16 KB
+# either way; each of the 8 consumer warps has 2 KB of epilogue scratch
+# (csrc/fused_bn_fwd.cu)
+_FWD_ROWS = 128
+_FWD_STAGE = _FWD_ROWS * _ROW_BYTES
+_FWD_SCRATCH = 8 * 2048
+
+
+def _fwd_smem(k_blocks: int, stages: int) -> int:
+    """csrc/fused_bn_fwd.cu:fwd_smem: the ring, z (k_blocks column blocks of
+    128 rows), the warps' scratch, the barriers."""
+    return (_ATOM + stages * _FWD_STAGE + k_blocks * _FWD_ROWS * _ROW_BYTES + _FWD_SCRATCH
+            + _BARRIER_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class _FwdPlan:
+    """K3's launch plan for (M, K, N), K and N multiples of 8.
+
+    A unit is a tile of 128 rows by a chunk of ``width`` columns of N: unit
+    u is (row tile u // n_chunks, chunk u % n_chunks).  Block b of ``grid``
+    takes the units [b·units // grid, (b + 1)·units // grid) in order, and
+    makes z over all of K (``k_blocks`` column blocks of 64 channels) where
+    one of them starts a row tile, or is its first; bf16(w) streams in
+    chunks of ``depth`` rows of K by ``width`` columns.  Each block's two
+    warpgroups add their units' column sums into a row of partial sums of
+    their own: row 2b + g of the ``2·grid`` rows, which the stats kernel
+    adds in row order."""
+    M: int
+    K: int
+    N: int
+    width: int
+    depth: int
+    k_blocks: int
+    n_chunks: int
+    row_tiles: int
+    units: int
+    grid: int
+    stages: int
+    workspace_bytes: int  # bf16(w) 2·K·N, then 2·grid rows of 2·N f32 partial sums
+
+    def units_of(self, block: int) -> range:
+        return range(block * self.units // self.grid, (block + 1) * self.units // self.grid)
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(M: int, K: int, N: int, sms: int) -> _FwdPlan:
+    """Unit width, grid, stages and workspace of K3 at (M, K, N), K and N
+    multiples of 8, on a card with ``sms`` SMs (one block each: z and the
+    ring take most of an SM's shared memory).  The width is a wgmma's: 256
+    columns where N ≥ 256, else 64 or 128; a staged chunk of bf16(w) is 16
+    KB (32 rows of K at width 256, else 64).  z of a row tile stays in
+    shared memory while the block's units walk its chunks of N, so a row
+    tile's z is made once per block that reaches it; the ring takes as
+    many stages as fit beside it (3 to 8), which bounds K at 640."""
+    width = _width(N)
+    k_blocks = -(-K // 64)
+    stages = min(_MAX_STAGES, (_SMEM_LIMIT - _fwd_smem(k_blocks, 0)) // _FWD_STAGE)
+    if stages < 3:
+        raise ValueError(f"the fused tail's forward kernel takes K <= 640 channels, got K = {K}")
+    n_chunks, row_tiles = -(-N // width), -(-M // _FWD_ROWS)
+    units = row_tiles * n_chunks
+    grid = min(sms, units)
+    return _FwdPlan(M, K, N, width, 32 if width == 256 else 64, k_blocks, n_chunks, row_tiles,
+                    units, grid, stages, 2 * K * N + 2 * grid * 2 * N * 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,20 +458,35 @@ def _library_bwd():
 def _launch_fwd(y2, scale, shift, w, M, K, N):
     global launches_fwd
     lib = _library_fwd()
-    y3 = torch.empty((M, N), dtype=torch.bfloat16, device=y2.device)
-    # the kernel adds each row tile's sums into zeroed statistics with atomics
-    s1 = torch.zeros(N, dtype=torch.float32, device=y2.device)
-    s2 = torch.zeros(N, dtype=torch.float32, device=y2.device)
+    dev = y2.device
     if M == 0 or K == 0 or N == 0:
-        return y3.zero_(), s1, s2
-    with torch.cuda.device(y2.device):
-        stream = torch.cuda.current_stream(y2.device).cuda_stream
-        rc = lib.fused_bn_fwd(y2.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(),
-                              y3.data_ptr(), s1.data_ptr(), s2.data_ptr(), M, K, N, stream)
+        return (torch.zeros((M, N), dtype=torch.bfloat16, device=dev),
+                *(torch.zeros(N, dtype=torch.float32, device=dev) for _ in range(2)))
+    # TMA reads rows whose stride is a multiple of 16 bytes from 16-byte
+    # boundaries: K and N go up to multiples of 8, the added channels and
+    # columns zero (their z and y3 are then 0), and the outputs are cut back
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    ins = (_padded(y2, (M, Kp)), _padded(scale, (Kp,)), _padded(shift, (Kp,)), _padded(w, (Kp, Np)))
+    plan = _fwd_plan(M, Kp, Np, local_sim._sm_count(dev))
+    # every output element is written by the kernels: y3 by the main pass,
+    # stats (s1, s2) by the stats pass; the workspace holds bf16(w) and the
+    # partial sums, each written before it is read
+    y3 = torch.empty((M, Np), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((2, Np), dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
+    # the kernels launch on the current device: switch only when y2 lies elsewhere
+    same = dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_bn_fwd(*(x.data_ptr() for x in ins), y3.data_ptr(), stats.data_ptr(), ws.data_ptr(), M, Kp, Np,
+                              plan.width, plan.grid, plan.stages, stream)
     if rc != 0:
         raise RuntimeError(f"fused_bn_fwd launch failed: {lib.fused_bn_fwd_error_string(rc).decode()}")
     with _launch_lock:
         launches_fwd += 1
+    s1, s2 = stats.unbind()
+    if Np != N:
+        return y3[:, :N].contiguous(), s1[:N].contiguous(), s2[:N].contiguous()
     return y3, s1, s2
 
 

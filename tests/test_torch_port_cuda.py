@@ -18,12 +18,13 @@ versions, both sides f32 with TF32 off:
   so two calls on the same inputs agree bit for bit;
 - the fused bottleneck tail (K3 forward, K4 backward) against its plain
   version, bf16 products with f32 sums on both sides (cuBLAS with
-  reduced-precision bf16 reductions off; K4's wgmma sums in its own
-  order): the tolerances of ``fused_bn.tail_errors`` and
+  reduced-precision bf16 reductions off; K3's and K4's wgmma sum in their
+  own order): the tolerances of ``fused_bn.tail_errors`` and
   ``fused_bn.grad_errors`` (y3 within one bf16 ulp, at most 1e-3 of its
   entries differing; s1, s2 at 1e-4; dy2 at one ulp of its largest entry;
   dscale, dshift, dW at 1e-3 of their largest: f32 sums in another order,
-  which K4's atomics change from call to call).
+  which K4's atomics change from call to call).  K3 has no atomics, so two
+  calls on the same inputs agree bit for bit.
 """
 
 import numpy as np
@@ -313,3 +314,37 @@ def test_fused_tail_bwd_zero_channel_gets_exact_zero_gradients(card):
     assert bool((dy2[:, 0] == 0).all()) and float(dscale[0]) == 0.0 and float(dshift[0]) == 0.0
     ref = fused_bn.bottleneck_tail_bwd_plain(y2, scale, shift, w, y3, gy3, gs1, gs2)
     _assert_within(fused_bn.grad_errors((dy2, dscale, dshift, dw), ref))
+
+
+# K3's launch plans (experiments/fused_bn.py:_fwd_plan) on the card's SMs
+FWD_REGIMES = [
+    (270000, 64, 256),   # ResNet-50's layer-1 tail: one unit a row tile, 2110 units on 132 blocks
+    (17328, 256, 1024),  # layer 3: four 256-column units a row tile; blocks walk several row tiles
+    (4801, 512, 2048),   # N groups: blocks start inside row tiles and make z again; ragged last tile
+    (129, 640, 64),      # K = 640: ten z column blocks beside a 3-stage ring; 64-column units
+    (300, 16, 128),      # one unit a row tile, one chunk of K: each unit adds to the same sums
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", FWD_REGIMES)
+def test_fused_tail_fwd_regimes_match_plain(card, M, K, N):
+    args, _ = _tail_inputs(card, M, K, N, seed=M + 2 * K + N)
+    before = fused_bn.launches_fwd
+    got = fused_bn.bottleneck_tail_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_bn.launches_fwd == before + 1
+    _assert_within(fused_bn.tail_errors(got, fused_bn.bottleneck_tail_plain(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", FWD_REGIMES + [(601, 24, 40)])
+def test_fused_tail_fwd_is_deterministic(card, M, K, N):
+    """Two K3 calls on the same inputs give the same y3, s1 and s2, bit for
+    bit (no atomics: every sum in an order the launch plan fixes)."""
+    args, _ = _tail_inputs(card, M, K, N, seed=3 * M + K + N)
+    first = fused_bn.bottleneck_tail_fwd(*args)
+    second = fused_bn.bottleneck_tail_fwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y3", "s1", "s2"), first, second):
+        assert torch.equal(a, b), name
