@@ -48,7 +48,23 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. card vs CPU — one step's loss, gradient norm and every parameter's
    gradient from the same weights and batch (8 pairs, dropout 0) on the
    card (kernels, cuDNN) and on the CPU (plain versions, oneDNN).
-8. fused tail — the archived fused bottleneck tail
+8. loader  — the pretraining data plane feeding the step: the native host
+   ingest built with g++ on this host (build time; ms per batch of 48
+   uint8 images of 390×320 to the f32 and the u8 224² crop); the same
+   model as phase 6 with the attention-supervision loss on (weight 1.0),
+   fed by ``build_data_module(cfg, device="cuda").train_dataloader()``
+   (synthetic module, 256 px letterbox, 224 crop, 8 batches of 48 an
+   epoch, the config's 18 workers): the loader's batches/s alone, one
+   warm-up step, then five loader-fed steps, the launch counts read around
+   exactly those five; losses finite, ``attn_seg_loss`` > 0; step time and
+   pairs/s from the host clock and the time spent waiting on the loader,
+   beside five steps of the same model on the last loader batch kept on
+   the card and phase 6's resident-batch step.  Then
+   one B=8 loader batch (dropout 0; one builder, so the batch does not
+   depend on thread timing) through ``loss_and_grads`` on the card and on
+   the CPU, held as in phase 7, ``attn_seg_loss`` too, except that the
+   tensors outside the ResNet are held in relative L2 (STEP_TEXT_L2_TOL).
+9. fused tail — the archived fused bottleneck tail
    (``gloria_tpu_torch.experiments.fused_bn``, which no model path calls):
    hooks on the 16 Bottleneck ``conv2``s of one train-mode forward of the
    ResNet-50 tower (seed 0, the synthetic batch of 48, 299 px) capture each
@@ -65,7 +81,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    (torch.profiler); the wrapper's host time a call; the rates against the
    bound's bytes and operations; K3's y3, s1 and s2 bit for bit over two
    calls (it has no atomics); totals over the 16 tails.
-9. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+10. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -109,6 +125,16 @@ STEP_GRAD_TOL = 1e-3  # per gradient tensor outside the ResNet, x its max|g| (+1
 # relative L2 9.2e-3 (layer4.1.bn2.bias), so the backbone is held per tensor
 # in relative L2, at about 3x that.
 STEP_BACKBONE_L2_TOL = 3e-2
+# Phase 8's loader batches, outside the ResNet: the loss's gradient with
+# respect to the word features magnifies the <=5e-6 relative card/CPU
+# difference of the features about 1000x (BERT alone, given the same
+# upstream gradient, agrees to 0.006 of STEP_GRAD_TOL).  Over 13 B=8
+# batches (grad_spread.py; H100, 700 W) card against CPU reached 1.8e-3 in
+# one tensor's relative L2 and 3.0x STEP_GRAD_TOL x max|g| in one entry;
+# the CPU against itself, its image input moved by 1e-6 relative, 1.1e-3
+# and 1.9x.  So each tensor is held in relative L2, with the same 1e-6
+# floor (x sqrt(n)), at about 3x the card's worst.
+STEP_TEXT_L2_TOL = 5e-3
 BACKBONE = "img_encoder.model."
 TRAIN_BATCH = 48
 TRAIN_STEPS = 5
@@ -591,50 +617,238 @@ def phase_train(card: str) -> dict:
     return out
 
 
+def compare_card_cpu(gpu: tuple, cpu: tuple, names: list[str], what: str, seconds: float,
+                     keys: tuple[str, ...] = ("loss",), rest_l2_tol: float | None = None) -> None:
+    """One step's metrics ``keys`` (relative, STEP_LOSS_RTOL), gradient norm
+    and every parameter's gradient, card against CPU: the ResNet's tensors
+    in relative L2; each tensor outside it by max|diff| / (STEP_GRAD_TOL
+    max|g| + 1e-6), or, where ``rest_l2_tol`` is given, in relative L2 with
+    the same 1e-6 floor, ||diff|| / (||g|| + 1e-6 sqrt(n)), against it."""
+    from gloria_tpu_torch.training import optim
+
+    (gm, gg), (cm, cg) = gpu, cpu
+    errs = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in keys}
+    gn, cn = float(optim.global_norm(gg)), float(optim.global_norm(cg))
+    norm_err = abs(gn - cn) / cn
+    rows = []  # (max|diff| / tolerance, relative L2, max|diff|, max|g|, name, floored rel L2)
+    for name, a, b in zip(names, gg, cg):
+        d = a.cpu() - b
+        diff, scale = float(d.abs().max()), float(b.abs().max())
+        rel_l2 = float(d.norm() / b.norm()) if scale else 0.0
+        floored = float(d.norm()) / (float(b.norm()) + 1e-6 * b.numel() ** 0.5)
+        rows.append((diff / (STEP_GRAD_TOL * scale + 1e-6), rel_l2, diff, scale, name, floored))
+    backbone = sorted((r for r in rows if r[4].startswith(BACKBONE)), key=lambda r: -r[1])
+    rest = sorted((r for r in rows if not r[4].startswith(BACKBONE)), reverse=True)
+    log(f"[{what}] one step ({seconds:.1f} s): " + "; ".join(
+        f"{k} {float(gm[k]):.6f} vs {float(cm[k]):.6f} (rel {errs[k]:.2e}, tol {STEP_LOSS_RTOL})"
+        for k in keys) + f"; grad_norm {gn:.5f} vs {cn:.5f} (rel {norm_err:.2e}, tol "
+        f"{STEP_GRAD_NORM_RTOL})")
+    if rest_l2_tol is None:
+        log(f"[{what}] {len(rest)} tensors outside the ResNet, worst by max|diff| / "
+            f"({STEP_GRAD_TOL} max|g| + 1e-6), tol 1:")
+    else:
+        log(f"[{what}] {len(rest)} tensors outside the ResNet, worst by ||diff|| / (||g|| + "
+            f"1e-6 sqrt(n)), tol {rest_l2_tol}; worst max|diff| / ({STEP_GRAD_TOL} max|g| + "
+            f"1e-6) {rest[0][0]:.3f}:")
+        rest.sort(key=lambda r: -r[5])
+    for ratio, rel_l2, diff, scale, name, floored in rest[:3]:
+        log(f"[{what}]   {name}: max|diff| {diff:.3e}, max|g| {scale:.3e}, ratio {ratio:.3f}, "
+            f"relative L2 {rel_l2:.2e}, floored {floored:.2e}")
+    log(f"[{what}] {len(backbone)} ResNet tensors, worst by relative L2 (tol "
+        f"{STEP_BACKBONE_L2_TOL}); worst max|diff| / max|g| "
+        f"{max(r[2] / max(r[3], 1e-30) for r in backbone):.2e}:")
+    for ratio, rel_l2, diff, scale, name, _ in backbone[:3]:
+        log(f"[{what}]   {name}: relative L2 {rel_l2:.2e}, max|diff| {diff:.3e}, max|g| "
+            f"{scale:.3e}")
+    for k in keys:
+        check(errs[k] <= STEP_LOSS_RTOL, f"{what}: card {k} agrees with the CPU's")
+    check(norm_err <= STEP_GRAD_NORM_RTOL, f"{what}: card grad_norm agrees with the CPU's")
+    if rest_l2_tol is None:
+        check(rest[0][0] <= 1.0, f"{what}: every gradient outside the ResNet agrees with the CPU's")
+    else:
+        check(rest[0][5] <= rest_l2_tol,
+              f"{what}: every gradient outside the ResNet agrees with the CPU's in relative L2")
+    check(backbone[0][1] <= STEP_BACKBONE_L2_TOL,
+          f"{what}: every ResNet gradient agrees with the CPU's")
+
+
 def phase_card_vs_cpu() -> None:
     """Phase 7: one step's loss, gradient norm and every gradient, card vs CPU."""
     import torch
 
     from gloria_tpu_torch.data.synthetic import make_synthetic_batch
     from gloria_tpu_torch.models.gloria_model import init_gloria
-    from gloria_tpu_torch.training import optim, train
+    from gloria_tpu_torch.training import train
 
     cfg = pretrain_config(dropout=0.0)
     cpu_model = init_gloria(cfg, seed=0)
     gpu_model = copy.deepcopy(cpu_model).cuda()
     raw = make_synthetic_batch(batch_size=8, num_tokens=97, imsize=224, vocab_size=28996, seed=1)
     t0 = time.perf_counter()
-    gm, gg = train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")))
-    cm, cg = train.loss_and_grads(cpu_model, train.to_device(raw, torch.device("cpu")))
-    loss_err = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
-    gn, cn = float(optim.global_norm(gg)), float(optim.global_norm(cg))
-    norm_err = abs(gn - cn) / cn
-    rows = []  # (max|diff| / tolerance, relative L2, max|diff|, max|g|, name)
-    for (name, _), a, b in zip(cpu_model.named_parameters(), gg, cg):
-        diff, scale = float((a.cpu() - b).abs().max()), float(b.abs().max())
-        rel_l2 = float((a.cpu() - b).norm() / b.norm()) if scale else 0.0
-        rows.append((diff / (STEP_GRAD_TOL * scale + 1e-6), rel_l2, diff, scale, name))
-    backbone = sorted((r for r in rows if r[4].startswith(BACKBONE)), key=lambda r: -r[1])
-    rest = sorted((r for r in rows if not r[4].startswith(BACKBONE)), reverse=True)
-    log(f"[card vs cpu] 8 pairs, dropout 0, one step ({time.perf_counter() - t0:.1f} s): loss "
-        f"{float(gm['loss']):.6f} vs {float(cm['loss']):.6f} (rel {loss_err:.2e}, tol "
-        f"{STEP_LOSS_RTOL}); grad_norm {gn:.5f} vs {cn:.5f} (rel {norm_err:.2e}, tol "
-        f"{STEP_GRAD_NORM_RTOL})")
-    log(f"[card vs cpu] {len(rest)} tensors outside the ResNet, worst by max|diff| / "
-        f"({STEP_GRAD_TOL} max|g| + 1e-6), tol 1:")
-    for ratio, rel_l2, diff, scale, name in rest[:3]:
-        log(f"[card vs cpu]   {name}: max|diff| {diff:.3e}, max|g| {scale:.3e}, ratio {ratio:.3f}, "
-            f"relative L2 {rel_l2:.2e}")
-    log(f"[card vs cpu] {len(backbone)} ResNet tensors, worst by relative L2 (tol "
-        f"{STEP_BACKBONE_L2_TOL}); worst max|diff| / max|g| "
-        f"{max(r[2] / max(r[3], 1e-30) for r in backbone):.2e}:")
-    for ratio, rel_l2, diff, scale, name in backbone[:3]:
-        log(f"[card vs cpu]   {name}: relative L2 {rel_l2:.2e}, max|diff| {diff:.3e}, max|g| "
-            f"{scale:.3e}")
-    check(loss_err <= STEP_LOSS_RTOL, "card loss agrees with the CPU's")
-    check(norm_err <= STEP_GRAD_NORM_RTOL, "card grad_norm agrees with the CPU's")
-    check(rest[0][0] <= 1.0, "every gradient outside the ResNet agrees with the CPU's")
-    check(backbone[0][1] <= STEP_BACKBONE_L2_TOL, "every ResNet gradient agrees with the CPU's")
+    gpu = train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")))
+    cpu = train.loss_and_grads(cpu_model, train.to_device(raw, torch.device("cpu")))
+    compare_card_cpu(gpu, cpu, [n for n, _ in cpu_model.named_parameters()],
+                     "card vs cpu", time.perf_counter() - t0)
+
+
+def loader_config(batch_size: int, dropout: float):
+    """Phase 8's run: the pretrain config with the attention-supervision loss
+    (weight 1.0, as configs/imagenome_attn_finetune_config.yaml sets it), fed
+    by the synthetic data module at 256 px, 8 batches an epoch, with the
+    config's 18 workers."""
+    cfg = pretrain_config(dropout)
+    cfg.model.gloria.segmentation_loss_weight = 1.0
+    cfg.data.dataset = "synthetic"
+    cfg.data.synthetic_size = 8 * batch_size
+    cfg.train.batch_size = batch_size
+    cfg.train.num_workers = 18
+    return cfg
+
+
+def native_ingest_numbers(card: str) -> dict:
+    """The native library's build time on this host, and its ms per batch
+    for 48 uint8 images of 390 × 320 (CheXpert's downsampled size) to the
+    [48, 224, 224, 3] f32 crop and to the [48, 224, 224, 1] u8 crop."""
+    import os
+
+    from gloria_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    built = native.load()
+    out = {"build_s": built.seconds, "load_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(2)
+    imgs = [(rng.rand(390, 320) * 255).astype(np.uint8) for _ in range(TRAIN_BATCH)]
+    tops, lefts = rng.randint(0, 33, TRAIN_BATCH), rng.randint(0, 33, TRAIN_BATCH)
+    flips = rng.randint(0, 2, TRAIN_BATCH)
+    calls = {
+        "f32": lambda: native.letterbox_crop_normalize_batch(imgs, 256, 224, tops, lefts, flips),
+        "u8": lambda: native.letterbox_crop_u8_batch(imgs, 256, 224, tops, lefts, flips),
+    }
+    for name, fn in calls.items():
+        y = fn()
+        check(y.shape == (TRAIN_BATCH, 224, 224, 3 if name == "f32" else 1),
+              f"native ingest {name}: output shape")
+        times = []
+        for _ in range(7):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        out[f"{name}_ms"] = statistics.median(times) * 1e3
+    log(f"[loader] native ingest on this host ({os.cpu_count()} CPUs, {os.cpu_count()} threads "
+        f"a call): g++ build {out['build_s']:.2f} s (load {out['load_s']:.2f} s); "
+        f"{TRAIN_BATCH} uint8 images of 390x320 -> [{TRAIN_BATCH}, 224, 224, 3] f32 "
+        f"{out['f32_ms']:.2f} ms a batch, -> [{TRAIN_BATCH}, 224, 224, 1] u8 {out['u8_ms']:.2f} ms "
+        f"a batch (host clock, median of 7) [{card}]")
+    return out
+
+
+def phase_loader(card: str, resident_step_ms: float) -> dict:
+    """Phase 8: the pretraining data plane feeding the full-width step."""
+    import os
+
+    import torch
+
+    from gloria_tpu_torch.data.data_module import build_data_module
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.ops import local_sim
+    from gloria_tpu_torch.training import optim, train
+
+    t_phase = time.perf_counter()
+    out = {"native": native_ingest_numbers(card)}
+    cfg = loader_config(TRAIN_BATCH, dropout=0.1)
+    t0 = time.perf_counter()
+    module = build_data_module(cfg, device="cuda")
+    loader = module.train_dataloader()
+    out["builders"] = loader.builders
+    batches, t_first = 0, None
+    t = time.perf_counter()
+    for batch in loader:  # the loader alone: one epoch, each batch moved to the card
+        batches += 1
+        t_first = t_first or time.perf_counter() - t
+    torch.cuda.synchronize()
+    out["loader_s"] = time.perf_counter() - t
+    out["loader_batches_per_s"] = batches / out["loader_s"]
+    out["loader_steady_batches_per_s"] = (batches - 1) / (out["loader_s"] - t_first)
+    check(batches == len(loader) == 8, "the loader gives 8 batches an epoch")
+    labels = batch["segmentation_labels"]
+    check(labels.shape == (TRAIN_BATCH, 224, 224) and labels.is_cuda and bool(labels.any()),
+          "segmentation_labels on the card at the crop size")
+    check(batch["imgs"].shape == (TRAIN_BATCH, 224, 224, 3) and batch["imgs"].is_cuda,
+          "images on the card")
+    valid_words = int(batch["cap_lens"].sum() - TRAIN_BATCH)
+    log(f"[loader] synthetic module, {TRAIN_BATCH} pairs a batch, 256 px letterbox, 224 crop: "
+        f"{batches} batches in {out['loader_s']:.3f} s, {out['loader_batches_per_s']:.2f} "
+        f"batches/s ({out['loader_batches_per_s'] * TRAIN_BATCH:.1f} pairs/s), first batch after "
+        f"{t_first:.3f} s, {out['loader_steady_batches_per_s']:.2f} batches/s after it; "
+        f"{loader.builders} builder threads, os.cpu_count() {os.cpu_count()}; "
+        f"last batch {valid_words} valid words [{card}]")
+
+    model = init_gloria(cfg, seed=0)
+    model.img_encoder.to(memory_format=torch.channels_last)
+    opt = optim.make_optimizer(cfg, grad_clip=cfg.lightning.trainer.gradient_clip_val)
+    state = train.create_train_state(model, opt, seed=0, device="cuda")
+    train_step, _ = train.make_pretrain_steps(model, opt)
+    it = iter(loader)
+    state, _ = train_step(state, next(it))  # warm-up
+    torch.cuda.synchronize()
+    log(f"[loader] model, module and warm-up step {time.perf_counter() - t0:.1f} s")
+    metrics, wait = [], 0.0
+    local_sim.launches = local_sim.launches_bwd = 0  # ---- loader-fed path starts ----
+    t = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t_next = time.perf_counter()
+        batch = next(it)
+        wait += time.perf_counter() - t_next
+        state, m = train_step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t) / TRAIN_STEPS * 1e3
+    out["launches"] = (local_sim.launches, local_sim.launches_bwd)  # -- path ends ----
+    out["wait_ms"] = wait / TRAIN_STEPS * 1e3
+    del it
+    # the same model and config on the last loader batch, kept on the card
+    t = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    out["resident_step_ms"] = (time.perf_counter() - t) / TRAIN_STEPS * 1e3
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"[loader] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+        check(all(np.isfinite(v) for v in vals.values()), f"loader-fed step {i + 1}: finite")
+        check(vals["attn_seg_loss"] > 0, f"loader-fed step {i + 1}: attn_seg_loss > 0")
+        check(vals["nonfinite_steps"] == 0, f"loader-fed step {i + 1}: no step skipped")
+    log(f"[loader] launches over the {TRAIN_STEPS} loader-fed steps: local_sim_fwd "
+        f"{out['launches'][0]}, local_sim_bwd {out['launches'][1]}")
+    check(out["launches"] == (TRAIN_STEPS, TRAIN_STEPS),
+          "one K1 and one K2 launch per loader-fed step")
+    log(f"[loader] loader-fed step {out['step_ms']:.2f} ms, "
+        f"{TRAIN_BATCH / out['step_ms'] * 1e3:.1f} pairs/s (host clock over {TRAIN_STEPS} steps, "
+        f"synchronized at the end; {out['wait_ms']:.2f} ms a step in next(loader), the card "
+        f"copy included); the same steps on the last loader batch kept on the card "
+        f"{out['resident_step_ms']:.2f} ms, {TRAIN_BATCH / out['resident_step_ms'] * 1e3:.1f} "
+        f"pairs/s (host clock); phase 6's step on a resident batch {resident_step_ms:.2f} ms, "
+        f"{TRAIN_BATCH / resident_step_ms * 1e3:.1f} pairs/s (CUDA events; another batch: "
+        f"no attention supervision, 2160 valid words) [{card}]")
+    del model, state, opt, loader, module, batch, metrics
+    torch.cuda.empty_cache()
+
+    # card vs CPU on one B=8 loader batch, dropout 0, attention supervision on
+    small = loader_config(8, dropout=0.0)
+    small.train.num_workers = 1  # one builder: the batch does not depend on thread timing
+    raw = next(iter(build_data_module(small, device="cpu").loader("train", prefetch=1)))
+    cpu_model = init_gloria(small, seed=0)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    t = time.perf_counter()
+    gpu = train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")))
+    cpu = train.loss_and_grads(cpu_model, raw)
+    compare_card_cpu(gpu, cpu, [n for n, _ in cpu_model.named_parameters()],
+                     "loader card vs cpu", time.perf_counter() - t, ("loss", "attn_seg_loss"),
+                     rest_l2_tol=STEP_TEXT_L2_TOL)
+    del gpu_model, cpu_model, gpu, cpu
+    torch.cuda.empty_cache()
+    log(f"[loader] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def tail_work(M: int, K: int, N: int) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -719,7 +933,7 @@ def bitwise_repeat(fn) -> tuple[bool, ...]:
 
 
 def phase_fused_tail(card: str) -> dict:
-    """Phase 8: K3 and K4 on the 16 bottleneck tails of one ResNet-50 train
+    """Phase 9: K3 and K4 on the 16 bottleneck tails of one ResNet-50 train
     step, held against the plain version, probed at edge shapes, and timed
     per shape against the plain version, cuBLAS's products alone and the
     bound."""
@@ -1087,18 +1301,22 @@ def main() -> int:
     # ---- 7. card vs CPU: one step's gradients -------------------------------
     phase_card_vs_cpu()
 
-    # ---- 8. fused tail: K3 and K4 on a ResNet-50 step's 16 bottleneck tails
+    # ---- 8. loader: the data plane feeding the step, attention supervision on
+    ld = phase_loader(card, tr["step_ms"])
+
+    # ---- 9. fused tail: K3 and K4 on a ResNet-50 step's 16 bottleneck tails
     ft = phase_fused_tail(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 9. result lines --------------------------------------------------
+    # ---- 10. result lines -------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_fwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
-        "launches": main_path_launches + tr["launches"][0],
-        "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0]},
+        "launches": main_path_launches + tr["launches"][0] + ld["launches"][0],
+        "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0],
+                             "loader_train": ld["launches"][0]},
         "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
         "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
         "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -1110,7 +1328,8 @@ def main() -> int:
         "name": "local_sim_bwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
-        "launches": tr["launches"][1], "launches_by_path": {"train": tr["launches"][1]},
+        "launches": tr["launches"][1] + ld["launches"][1],
+        "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",

@@ -1,10 +1,29 @@
-"""Constants the serving slice reads (the port's own copy).
+"""Dataset paths, CSV columns and the zero-shot prompt grammar (the port's
+own copy of ``gloria_tpu.constants``).
+
+The CheXpert paths come from the environment (``GLORIA_DATA_ROOT``,
+``CHEXPERT_DATA_DIR``), read once at import, as in the JAX package.
 
 ``CHEXPERT_CLASS_PROMPTS`` is the zero-shot prompt grammar: per class, a
 severity x subtype x location product.  The strings match the reference
 exactly, typos included ("apperance of", "presistent", "uppper"), so both
 packages sample the same prompt sets.
 """
+
+import os
+from pathlib import Path
+
+DATA_ROOT = Path(os.environ.get("GLORIA_DATA_ROOT", "./data"))
+
+CHEXPERT_DATA_DIR = Path(os.environ.get("CHEXPERT_DATA_DIR", DATA_ROOT / "CheXpert-v1.0"))
+CHEXPERT_TRAIN_CSV = CHEXPERT_DATA_DIR / "train_split.csv"
+CHEXPERT_VALID_CSV = CHEXPERT_DATA_DIR / "valid_split.csv"
+# the hidden-label test set means the public valid.csv doubles as test
+CHEXPERT_TEST_CSV = CHEXPERT_DATA_DIR / "valid.csv"
+
+CHEXPERT_VIEW_COL = "Frontal/Lateral"
+CHEXPERT_PATH_COL = "Path"
+CHEXPERT_REPORT_COL = "Report Impression"
 
 CHEXPERT_CLASS_PROMPTS = {
     "Atelectasis": {

@@ -10,7 +10,8 @@ Port of ``gloria_tpu.models.gloria_model.GLoRIA``:
 - optional learnable no-attention sink vector ``no_attn_vec``;
 - the uint8 input branch: raw pixels (C=3, or C=1 broadcast to 3) are
   normalized on the device in f32, exactly as the host pipeline does;
-- ``calc_loss``: the weighted local, global and no-attention terms.
+- ``calc_loss``: the weighted local, global, no-attention and
+  attention-supervision terms.
 
 ``train()`` / ``eval()`` switch BatchNorm between batch and running
 statistics and BERT's dropout on and off; train-mode dropout draws from the
@@ -32,6 +33,7 @@ from torch import nn
 from ..configs import Config
 from ..data.transforms import norm_constants
 from ..ops import gloria_loss
+from ..ops.resize import resize_maps_nearest
 from .bert import BertConfig
 from .resnet import BasicBlock, Bottleneck
 from .text_model import TextEncoder
@@ -166,23 +168,24 @@ class GLoRIA(nn.Module):
         return img_emb_l, img_emb_g, text_emb_l, text_emb_g, grid
 
     def calc_loss(self, img_emb_l, img_emb_g, text_emb_l, text_emb_g, cap_lens,
-                  segmentation_labels=None):
+                  grid: tuple[int, int] | None = None, segmentation_labels=None):
         """Weighted multi-term loss.  Returns (loss, metrics dict, attn [B, W, R]).
 
         Ported: the local InfoNCE pair (its similarity matrix through the
-        local-similarity kernels on a card), the global pair, and the
-        no-attention term.  The attention-supervision and flat-attention
-        ablation losses are not, and configs that ask for them raise."""
+        local-similarity kernels on a card), the global pair, the
+        no-attention term and the attention-supervision term, which needs
+        the local features' ``grid`` (h, w) and ``segmentation_labels``
+        [B, H, W].  The flat-attention ablation losses are not, and configs
+        that ask for them raise."""
         g = self.cfg.model.gloria
         for key in ("attention_divergence_loss_weight", "attention_entropy_loss_weight"):
             if g[key] is not None:
                 raise NotImplementedError(
                     f"model.gloria.{key}: the flat-attention ablation losses are not ported yet "
                     "(queued in ROADMAP.md A1)")
-        if segmentation_labels is not None and g.segmentation_loss_weight:
-            raise NotImplementedError(
-                "model.gloria.segmentation_loss_weight: the attention-supervision loss is not "
-                "ported yet (queued in ROADMAP.md A1)")
+        supervise = segmentation_labels is not None and bool(g.segmentation_loss_weight)
+        if supervise and grid is None:
+            raise ValueError("the attention-supervision loss needs the local features' grid (h, w)")
         local_w = 1.0 if g.local_loss_weight is None else g.local_loss_weight
         global_w = 1.0 if g.global_loss_weight is None else g.global_loss_weight
         temp3 = g.temp3 or 10.0
@@ -197,6 +200,21 @@ class GLoRIA(nn.Module):
             g0, g1 = gloria_loss.global_loss(img_emb_g, text_emb_g, temp3=temp3)
             metrics.update(global_loss0=g0, global_loss1=g1)
             loss = loss + (g0 + g1) * global_w
+        if supervise:
+            # attention-supervision NLL: the mean attention map over the valid
+            # words, resized nearest to the label size and normalized to a
+            # distribution; −log of its mass inside the bbox-union mask
+            h, w = grid
+            B, W, _ = attn.shape
+            mask = gloria_loss.make_word_mask(cap_lens.to(attn.device), W, "train")[..., None]
+            mean_maps = torch.where(mask, attn, 0.0).sum(1) / mask.sum(1).clamp_min(1)
+            up = resize_maps_nearest(mean_maps.reshape(B, h, w),
+                                     tuple(segmentation_labels.shape[1:3]))
+            up = up / up.sum(dim=(-1, -2), keepdim=True).clamp_min(1e-12)
+            inside = (segmentation_labels * up).sum(dim=(-1, -2))
+            seg_loss = -torch.log(inside.clamp_min(1e-12)).mean() * g.segmentation_loss_weight
+            metrics["attn_seg_loss"] = seg_loss
+            loss = loss + seg_loss
         if g.no_attn_loss_weight is not None:
             metrics["no_attn_loss"] = no_attn_l
         loss = loss + no_attn_l

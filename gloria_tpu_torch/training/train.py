@@ -12,8 +12,9 @@ there is nothing to compile: the steps are plain functions.
 
 Not ported yet, and refused by :func:`make_pretrain_steps`: gradient
 accumulation, several steps per dispatch, the freeze flags and training the
-image transformer; ``calc_loss`` refuses the attention-supervision and
-flat-attention ablation losses.
+image transformer; ``calc_loss`` refuses the flat-attention ablation
+losses.  A batch with ``segmentation_labels`` trains the
+attention-supervision term when the config weights it.
 """
 
 from __future__ import annotations
@@ -72,9 +73,14 @@ def _refuse_unported(cfg: Config) -> None:
 
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy arrays or tensors → tensors on ``device``: ids, masks and
-    cap_lens as int64, uint8 images as they are, the rest as float32."""
+    cap_lens as int64, uint8 images as they are, the rest as float32.  The
+    collate's host-only keys (leading underscore: words, order, ids) pass
+    through untouched."""
     out = {}
     for k, v in batch.items():
+        if k.startswith("_"):
+            out[k] = v
+            continue
         x = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
         if k in _LONG_KEYS:
             x = x.long()
@@ -95,8 +101,8 @@ def loss_and_grads(model: GLoRIA, batch: dict, generator: torch.Generator | None
     (BERT's pooler) gets zeros, as in JAX."""
     params = list(model.parameters())
     model.train()
-    img_l, img_g, txt_l, txt_g, _ = model(batch, generator=generator)
-    loss, metrics, _ = model.calc_loss(img_l, img_g, txt_l, txt_g, batch["cap_lens"],
+    img_l, img_g, txt_l, txt_g, grid = model(batch, generator=generator)
+    loss, metrics, _ = model.calc_loss(img_l, img_g, txt_l, txt_g, batch["cap_lens"], grid,
                                        batch.get("segmentation_labels"))
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if gr is None else gr for gr, p in zip(grads, params)]
@@ -110,8 +116,10 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
 
     ``batch`` holds numpy arrays or tensors: imgs [B, H, W, 3],
     caption_ids / attention_mask / token_type_ids [B, T], word_assignment
-    [B, W, T], cap_lens [B].  Metrics are 0-d tensors on the model's device:
-    loss, local_loss0/1, global_loss0/1, no_attn_loss (when configured),
+    [B, W, T], cap_lens [B], optionally segmentation_labels [B, H, W] and
+    the collate's host-only ``_`` keys.  Metrics are 0-d tensors on the
+    model's device: loss, local_loss0/1, global_loss0/1, no_attn_loss and
+    attn_seg_loss (when configured),
     grad_norm and, with the non-finite guard on, nonfinite_steps.  The
     train step updates ``state`` in place and returns it."""
     _refuse_unported(model.cfg)
@@ -147,8 +155,8 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
         ``_global_sims``, temperatures 4 and 5 as the reference's eval)."""
         model.eval()
         b = to_device(batch, params[0].device)
-        img_l, img_g, txt_l, txt_g, _ = model(b)
-        _, metrics, attn = model.calc_loss(img_l, img_g, txt_l, txt_g, b["cap_lens"],
+        img_l, img_g, txt_l, txt_g, grid = model(b)
+        _, metrics, attn = model.calc_loss(img_l, img_g, txt_l, txt_g, b["cap_lens"], grid,
                                            b.get("segmentation_labels"))
         metrics = dict(metrics)
         metrics["_attn"] = attn

@@ -348,3 +348,80 @@ def test_fused_tail_fwd_is_deterministic(card, M, K, N):
     torch.cuda.synchronize()
     for name, a, b in zip(("y3", "s1", "s2"), first, second):
         assert torch.equal(a, b), name
+
+
+# ---- the pretraining data plane and the attention-supervision loss ------------
+
+def _tiny_pretrain_cfg(**data):
+    from gloria_tpu_torch.configs import Config
+
+    return Config({
+        "model": {"gloria": {"temp1": 4.0, "temp2": 5.0, "temp3": 10.0,
+                             "segmentation_loss_weight": 1.0},
+                  "vision": {"model_name": "resnet_18"},
+                  "text": {"embedding_dim": 32, "agg_tokens": True,
+                           "bert_config": {"vocab_size": 128, "hidden_size": 32, "num_layers": 2,
+                                           "num_heads": 4, "intermediate_size": 64,
+                                           "max_position_embeddings": 32,
+                                           "dropout_rate": 0.0}}},
+        "data": {"dataset": "synthetic", "synthetic_size": 8,
+                 "image": {"imsize": 64}, "text": {"word_num": 24}, **data},
+        "transforms": {"norm": "half", "random_crop": {"crop_size": 48},
+                       "random_horizontal_flip": 0.5},
+        "train": {"batch_size": 4, "num_workers": 1},
+    })
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_normalize", [False, True], ids=["f32", "uint8"])
+def test_loader_batch_lands_on_the_card(card, device_normalize):
+    """A synthetic module's train batch: every array key a tensor on the card
+    (ids, masks, cap_lens int64; images f32, or uint8 for device
+    normalization; the rest f32); the host keys stay host objects."""
+    from gloria_tpu_torch.data.data_module import build_data_module
+
+    cfg = _tiny_pretrain_cfg(device_normalize=device_normalize)
+    batch = next(iter(build_data_module(cfg, device=card).train_dataloader()))
+    dtypes = {"imgs": torch.uint8 if device_normalize else torch.float32,
+              "caption_ids": torch.int64, "attention_mask": torch.int64,
+              "token_type_ids": torch.int64, "cap_lens": torch.int64,
+              "word_assignment": torch.float32, "segmentation_labels": torch.float32}
+    assert {k for k in batch if not k.startswith("_")} == set(dtypes)
+    for k, dtype in dtypes.items():
+        assert batch[k].device.type == "cuda" and batch[k].dtype == dtype, k
+    assert batch["imgs"].shape == (4, 48, 48, 3)
+    assert isinstance(batch["_words"], list) and isinstance(batch["_ids"], list)
+    assert isinstance(batch["_order"], np.ndarray) and isinstance(batch["_indices"], np.ndarray)
+
+
+@pytest.mark.cuda
+def test_attention_supervised_step_card_matches_cpu(card):
+    """One loader batch through ``loss_and_grads`` with the
+    attention-supervision loss on (dropout 0), on the card (K1, K2, cuDNN,
+    TF32 off) and on the CPU: loss and ``attn_seg_loss`` at 1e-4 relative,
+    the gradient norm at 1e-3 relative."""
+    import copy
+
+    from gloria_tpu_torch.data.data_module import build_data_module
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.training import optim, train
+
+    cfg = _tiny_pretrain_cfg()
+    raw = next(iter(build_data_module(cfg, device="cpu").train_dataloader()))
+    cpu_model = init_gloria(cfg, seed=0)
+    gpu_model = copy.deepcopy(cpu_model).to(card)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = (local_sim.launches, local_sim.launches_bwd)
+        gm, gg = train.loss_and_grads(gpu_model, train.to_device(raw, card))
+        torch.cuda.synchronize()
+        assert (local_sim.launches, local_sim.launches_bwd) == (before[0] + 1, before[1] + 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cm, cg = train.loss_and_grads(cpu_model, raw)
+    for k in ("loss", "attn_seg_loss"):
+        assert abs(float(gm[k]) - float(cm[k])) <= 1e-4 * abs(float(cm[k])), k
+    assert float(cm["attn_seg_loss"]) > 0
+    gn, cn = float(optim.global_norm(gg)), float(optim.global_norm(cg))
+    assert abs(gn - cn) <= 1e-3 * cn

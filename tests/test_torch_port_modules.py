@@ -126,10 +126,11 @@ def test_text_processor_matches_jax():
             np.testing.assert_array_equal(got[k], ref[k])
 
 
-@pytest.mark.parametrize("name,pixels", [("resnet_18", 64), ("resnet_50", 32)])
+@pytest.mark.parametrize("name,pixels", [("resnet_18", 64), ("resnet_50", 32),
+                                         ("resnet_34", 32), ("resnext_50", 32)])
 def test_resnet_matches_jax(name, pixels):
-    """BasicBlock (ResNet-18) and Bottleneck (ResNet-50) towers: pooled
-    layer4 and the layer3 map."""
+    """BasicBlock (ResNet-18, -34) and Bottleneck (ResNet-50, grouped
+    ResNeXt-50) towers: pooled layer4 and the layer3 map."""
     x = np.random.RandomState(7).randn(2, pixels, pixels, 3).astype(np.float32)
     jmodel, _, _ = jax_backbone(name)
     variables = _np_tree(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x)))
@@ -175,7 +176,19 @@ def test_bert_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=1e-5)
 
 
-def test_text_encoder_matches_jax():
+TEXT_ENCODER_OPTIONS = {
+    "sum-last4-agg": {},
+    "mean": {"aggregate_method": "mean"},
+    "last1": {"last_n_layers": 1},
+    "no-agg-tokens": {"agg_tokens": False},
+    "norm": {"norm": True},
+}
+
+
+@pytest.mark.parametrize("option", sorted(TEXT_ENCODER_OPTIONS))
+def test_text_encoder_matches_jax(option):
+    opts = {"last_n_layers": 4, "aggregate_method": "sum", "norm": False, "agg_tokens": True,
+            **TEXT_ENCODER_OPTIONS[option]}
     cfg = dict(vocab_size=64, hidden_size=32, num_layers=4, num_heads=4,
                intermediate_size=48, max_position_embeddings=16)
     ids, mask, types = _bert_inputs(T=12)
@@ -184,10 +197,10 @@ def test_text_encoder_matches_jax():
     for b in range(3):
         for t in range(12):
             assign[b, min(t // 2, W - 1), t] = 1.0
-    jmodel = JTextEncoder(JBertConfig(**cfg), agg_tokens=True)
+    jmodel = JTextEncoder(JBertConfig(**cfg), **opts)
     params = _np_tree(jmodel.init(jax.random.PRNGKey(2), ids, mask, types, assign))["params"]
     ref_w, ref_s = jmodel.apply({"params": params}, ids, mask, types, assign)
-    model = TextEncoder(BertConfig(**cfg), agg_tokens=True)
+    model = TextEncoder(BertConfig(**cfg), **opts)
     sd = {f"model.{k}": torch.from_numpy(np.array(v)) for k, v in weights.bert_state_dict(params["bert"]).items()}
     model.load_state_dict(sd, strict=True)
     model.eval()  # no dropout, as the JAX apply's deterministic default
@@ -198,7 +211,17 @@ def test_text_encoder_matches_jax():
     np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0, atol=1e-5)
 
 
-def _gloria_cfg(extras: bool) -> Config:
+GLORIA_OPTIONS = {
+    "plain": {},
+    "sink-pos-transformer": {"extras": True},
+    "model-norm": {"norm": True},
+    "input-size-0": {"encoder_input_size": 0},
+    "input-size-64": {"encoder_input_size": 64},
+}
+
+
+def _gloria_cfg(extras: bool = False, norm: bool = False,
+                encoder_input_size: int | None = None) -> Config:
     model = {
         "gloria": {"temp1": 4.0, "temp2": 5.0, "temp3": 10.0, "no_attn_vec": extras},
         "vision": {"model_name": "resnet_18"},
@@ -211,15 +234,21 @@ def _gloria_cfg(extras: bool) -> Config:
     if extras:
         model["image_position_embeddings"] = {"num": 361}
         model["image_transformer"] = {"num_layers": 2, "num_heads": 4}
+    if norm:
+        model["norm"] = True
+    if encoder_input_size is not None:
+        model["vision"]["encoder_input_size"] = encoder_input_size
     return Config({"model": model, "transforms": {"norm": "half"}})
 
 
-@pytest.mark.parametrize("extras", [False, True], ids=["plain", "sink-pos-transformer"])
-def test_gloria_encoders_match_jax(extras):
+@pytest.mark.parametrize("option", list(GLORIA_OPTIONS))
+def test_gloria_encoders_match_jax(option):
     """``image_encoder_forward`` on float, uint8 C=3 and uint8 C=1 input, and
     ``text_encoder_forward``; with and without the sink, the 2-D position
-    embeddings and the image transformer."""
-    cfg = _gloria_cfg(extras)
+    embeddings and the image transformer, the embeddings' L2 norm
+    (``model.norm``) and the encoder input size (299 by default, 0: no
+    upsampling, 64)."""
+    cfg = _gloria_cfg(**GLORIA_OPTIONS[option])
     rng = np.random.RandomState(10)
     ids, mask, types = _bert_inputs(B=2, T=12)
     assign = np.eye(12, dtype=np.float32)[None].repeat(2, 0)
@@ -239,7 +268,8 @@ def test_gloria_encoders_match_jax(extras):
                                               method=GLoRIA.image_encoder_forward)
         with torch.no_grad():
             got_l, got_g, grid = model.image_encoder_forward(torch.from_numpy(imgs))
-        assert grid == tuple(ref_grid) == (19, 19)
+        assert grid == tuple(ref_grid) == {"input-size-0": (3, 3),
+                                           "input-size-64": (4, 4)}.get(option, (19, 19))
         _close(got_l.numpy(), ref_l, TOWER_TOL)
         _close(got_g.numpy(), ref_g, TOWER_TOL)
 

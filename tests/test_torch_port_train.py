@@ -31,6 +31,8 @@ Adam is not compared after a whole train step: its first update is about
 ``lr · sign(g)``, so a gradient near 0 can flip sign between the frameworks.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -204,6 +206,85 @@ def test_calc_loss_matches_jax(sink, no_attn):
         _grad_close(model.no_attn_vec.grad.numpy(), ref_grads[4]["no_attn_vec"])
 
 
+def _seg_inputs(B=6, R=36, W=12, D=16, label_hw=(74, 74)):
+    """Embeddings, cap_lens (one caption with the [CLS] word only) and
+    bbox-union labels (one image without a box)."""
+    rng = np.random.RandomState(21)
+    emb = [rng.randn(*shape).astype(np.float32)
+           for shape in ((B, R, D), (B, D), (B, W, D), (B, D))]
+    caps = np.asarray([1, 10, 4, 7, 12, 3], np.int32)[:B]
+    labels = np.zeros((B, *label_hw), np.float32)
+    for b in range(1, B):
+        y, x = rng.randint(0, label_hw[0] // 2), rng.randint(0, label_hw[1] // 2)
+        labels[b, y : y + label_hw[0] // 3, x : x + label_hw[1] // 4] = 1.0
+    return emb, caps, labels
+
+
+def _rel_l2(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+@functools.lru_cache(maxsize=1)
+def _seg_variables() -> dict:
+    """One JAX init of ``_loss_cfg``'s model with the sink, as numpy; the
+    case without the sink drops ``no_attn_vec``."""
+    init_batch = {"imgs": np.zeros((1, 32, 32, 3), np.float32),
+                  "caption_ids": np.ones((1, 8), np.int32),
+                  "attention_mask": np.ones((1, 8), np.int32),
+                  "token_type_ids": np.zeros((1, 8), np.int32),
+                  "word_assignment": np.eye(8, dtype=np.float32)[None]}
+    jmodel = GLoRIA(Config(_loss_cfg(sink=True, no_attn=False)))
+    return _np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(4), init_batch))
+
+
+@pytest.mark.parametrize("sink", [False, True], ids=["plain", "sink"])
+def test_calc_loss_attention_supervision_matches_jax(sink):
+    """The attention-supervision term on a 6 × 6 grid resized to 74 × 74
+    labels (where a float nearest index would pick another row), from JAX's
+    init carried across by ``state_dict_from_jax``: ``attn_seg_loss`` and
+    every metric at 1e-5 absolute, the gradients of the four embeddings and
+    of the sink in relative L2 at 1e-4."""
+    cfg = _loss_cfg(sink, no_attn=sink)
+    cfg["model"]["gloria"]["segmentation_loss_weight"] = 0.7
+    (img_l, img_g, txt_l, txt_g), caps, labels = _seg_inputs()
+    jmodel = GLoRIA(Config(cfg))
+    variables = _seg_variables()
+    if not sink:
+        variables = {**variables, "params": {k: v for k, v in variables["params"].items()
+                                             if k != "no_attn_vec"}}
+
+    def jax_loss(il, ig, tl, tg, params):
+        loss, metrics, _ = jmodel.apply({**variables, "params": params}, il, ig, tl, tg,
+                                        jnp.asarray(caps), (6, 6), jnp.asarray(labels),
+                                        method=GLoRIA.calc_loss)
+        return loss, metrics
+
+    (_, ref_metrics), ref_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2, 3, 4),
+                                                     has_aux=True)(
+        *(jnp.asarray(a) for a in (img_l, img_g, txt_l, txt_g)), variables["params"])
+
+    model = TGLoRIA(TConfig(cfg))
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (img_l, img_g, txt_l, txt_g)]
+    loss, metrics, _ = model.calc_loss(*inputs, torch.from_numpy(caps), (6, 6),
+                                       torch.from_numpy(labels))
+    loss.backward()
+    assert set(metrics) == set(ref_metrics) and "attn_seg_loss" in metrics
+    assert float(metrics["attn_seg_loss"].detach()) > 0
+    for k, v in ref_metrics.items():
+        np.testing.assert_allclose(float(metrics[k].detach()), float(v), rtol=0, atol=1e-5,
+                                   err_msg=k)
+    for got, ref in zip(inputs, ref_grads[:4]):
+        assert _rel_l2(got.grad.numpy(), ref) <= 1e-4
+    if sink:
+        assert _rel_l2(model.no_attn_vec.grad.numpy(), ref_grads[4]["no_attn_vec"]) <= 1e-4
+    with pytest.raises(ValueError, match="grid"):
+        model.calc_loss(*inputs, torch.from_numpy(caps),
+                        segmentation_labels=torch.from_numpy(labels))
+
+
 def test_unported_training_options_raise():
     cfg = _loss_cfg(sink=False, no_attn=False)
     model = TGLoRIA(TConfig(cfg))
@@ -220,9 +301,6 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="attention_entropy_loss_weight"):
         model.calc_loss(*emb, caps)
     model.cfg.model.gloria.attention_entropy_loss_weight = None
-    model.cfg.model.gloria.segmentation_loss_weight = 1.0
-    with pytest.raises(NotImplementedError, match="segmentation_loss_weight"):
-        model.calc_loss(*emb, caps, segmentation_labels=torch.ones(2, 8, 8))
 
 
 # ---- the optimizer alone -----------------------------------------------------
@@ -425,3 +503,55 @@ def test_train_mode_resnet_gradient_is_not_smooth_at_f32_noise():
     assert worst(1e-7)[0] < 1e-4
     entry, l2 = worst(1e-6)
     assert entry > 0.1 and l2 > 0.005
+
+
+# ---- the slice as a whole: loader-fed steps ---------------------------------------
+
+LOADER_OVERRIDES = {
+    "model.gloria.segmentation_loss_weight": 1.0,
+    "data.dataset": "synthetic",
+    "data.synthetic_size": 24,
+    "data.image.imsize": 64,
+    "data.text.word_num": 24,
+    "transforms.norm": "half",
+    "transforms.random_crop.crop_size": 56,
+    "transforms.random_horizontal_flip": 0.5,
+    "train.num_workers": 1,
+}
+
+
+def test_three_loader_fed_train_steps_match_jax():
+    """Each package's synthetic data module (seeded collates, tokenizer from
+    the corpus, one batch built at a time) feeds three SGD steps of the
+    tiny model with the attention-supervision loss on, each step from JAX's
+    weights: the batches bit for bit, and every metric (``attn_seg_loss``
+    and ``grad_norm`` included) at 1e-4 relative."""
+    from gloria_tpu.data.collate import device_batch
+    from gloria_tpu.data.data_module import build_data_module as jax_data_module
+    from gloria_tpu_torch.data.data_module import build_data_module
+
+    _, j_state, j_step, _ = tiny_setup(LOADER_OVERRIDES)
+    j_state = j_state.replace(opt_state=jax_optim.set_learning_rate(j_state.opt_state, STEP_LR))
+    cfg = TConfig(tiny_cfg(LOADER_OVERRIDES).to_dict())
+    model = TGLoRIA(cfg)
+    opt = optim.make_optimizer(cfg, grad_clip=cfg.lightning.trainer.gradient_clip_val)
+    t_state = train.create_train_state(model, opt, seed=0, device="cpu")
+    optim.set_learning_rate(t_state.opt_state, STEP_LR)
+    t_step, _ = train.make_pretrain_steps(model, opt)
+
+    j_batches = list(jax_data_module(tiny_cfg(LOADER_OVERRIDES)).loader(
+        "train", prefetch=1, process_index=0, process_count=1))
+    t_batches = list(build_data_module(cfg, device="cpu").loader("train", prefetch=1))
+    assert len(t_batches) == len(j_batches) == 3
+    for step, (jb, tb) in enumerate(zip(j_batches, t_batches)):
+        assert tb["segmentation_labels"].shape == (8, 56, 56) and tb["segmentation_labels"].any()
+        for k, v in device_batch(jb).items():
+            assert np.array_equal(tb[k].numpy(), np.asarray(v)), f"step {step} {k}"
+        model.load_state_dict(_state_dict_of(j_state), strict=True)
+        j_state, j_metrics = j_step(j_state, device_batch(jb))
+        t_state, t_metrics = t_step(t_state, tb)
+        assert set(t_metrics) == set(j_metrics) and "attn_seg_loss" in t_metrics
+        for k, v in j_metrics.items():
+            np.testing.assert_allclose(float(t_metrics[k]), float(v), rtol=STEP_RTOL, atol=0,
+                                       err_msg=f"step {step} {k}")
+    assert t_state.step == 3
