@@ -81,21 +81,45 @@ Phases, in order; any failure exits non-zero and prints no result:
    (torch.profiler); the wrapper's host time a call; the rates against the
    bound's bytes and operations; K3's y3, s1 and s2 bit for bit over two
    calls (it has no atomics); totals over the 16 tails.
-10. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+10. driver — ``configs/chexpert_pretrain_config.yaml``, read by the port's
+   own config reader, at full width with the overrides set in code and
+   printed (``data.dataset: synthetic`` with 96 items a split, so that
+   ``--limit_batches 2`` gives two batches of 48, and the vocabulary from
+   the corpus as in phase 8; ``precision: 32``; ``train.nvis: null``;
+   ``max_epochs: 2``; wandb disabled through the environment), written
+   with ``save_config``
+   into a temporary directory (its free space printed first; deleted at the
+   end), trained by ``python -m gloria_tpu_torch.run`` in subprocesses: run
+   A ``--train --test`` for 2 epochs; run B ``--train`` for 1 epoch, then
+   ``--train --test --resume --ckpt <B's last>`` to 2.  Checks: two epoch
+   rows with finite train and val losses in A and in B, a finite test loss,
+   the resumed epoch's numbering, global step (4), scheduler and early
+   stopping state, the manifest and ``best_ckpts.yaml``, the K1 and K2
+   launches inside run A (its train steps plus its val and test eval steps,
+   and its train steps), and ``load_gloria(<A's best>)`` serving five images
+   on the card and on the CPU within phase 4's tolerance.  Each run's wall
+   time and its split, pairs/s inside ``Trainer.fit``, each checkpoint
+   save's seconds and GB, and ``load_gloria``'s seconds.
+11. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import base64
 import copy
+import csv
 import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import wait
+from pathlib import Path
 
 import numpy as np
 
@@ -138,6 +162,13 @@ STEP_TEXT_L2_TOL = 5e-3
 BACKBONE = "img_encoder.model."
 TRAIN_BATCH = 48
 TRAIN_STEPS = 5
+ROOT = Path(__file__).resolve().parent
+DRIVER_CONFIG = "configs/chexpert_pretrain_config.yaml"
+DRIVER_BATCHES = 2  # --limit_batches: train, val and test batches an epoch
+DRIVER_TIMEOUT_S = 300
+# the config's WandbLogger mirror stays off and nothing looks for a hub:
+# the machine that runs this has no network
+DRIVER_ENV = {"WANDB_MODE": "disabled", "HF_HUB_OFFLINE": "1"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -709,7 +740,6 @@ def native_ingest_numbers(card: str) -> dict:
     """The native library's build time on this host, and its ms per batch
     for 48 uint8 images of 390 × 320 (CheXpert's downsampled size) to the
     [48, 224, 224, 3] f32 crop and to the [48, 224, 224, 1] u8 crop."""
-    import os
 
     from gloria_tpu_torch.data import native
 
@@ -1141,6 +1171,201 @@ def phase_fused_tail(card: str) -> dict:
     return out
 
 
+def driver_config():
+    """Phase 10's config: the shipped pretrain config with the overrides the
+    card's run needs, each returned for printing."""
+    from gloria_tpu_torch.configs import load_config
+
+    cfg = load_config(str(ROOT / DRIVER_CONFIG))
+    overrides = {
+        "data.dataset": "synthetic",  # the repository holds no CheXpert data
+        "data.synthetic_size": DRIVER_BATCHES * TRAIN_BATCH,  # two batches of 48 a split
+        # the vocabulary as phase 8 makes it, from the corpus: with a bert_type
+        # the tokenizer first imports transformers (23 s on the card's host)
+        # to look for a cached Bio_ClinicalBERT vocabulary, which is not there
+        "model.text.bert_type": None,
+        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
+        "train.nvis": None,  # training-time attention plots are A6
+        "lightning.trainer.max_epochs": 2,
+    }
+    for path, value in overrides.items():
+        cfg.set_path(path, value)
+    return cfg, overrides
+
+
+def checkpoint_bytes(cfg) -> tuple[int, int]:
+    """(parameters, bytes of a training checkpoint reckoned from the model:
+    f32 weights, BatchNorm statistics and Adam's two moments)."""
+    import torch
+
+    from gloria_tpu_torch.models.gloria_model import GLoRIA
+
+    with torch.device("meta"):
+        model = GLoRIA(cfg)
+    params = sum(p.numel() for p in model.parameters())
+    buffers = sum(t.numel() for t in model.state_dict().values()) - params
+    return params, 4 * (3 * params + buffers)
+
+
+def run_driver(cfg_path: Path, out: Path, *flags: str) -> dict:
+    """``python -m gloria_tpu_torch.run`` in a subprocess; its run directory,
+    report, results line and wall time."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gloria_tpu_torch.run", "-c", str(cfg_path), "--output_dir",
+         str(out), "--limit_batches", str(DRIVER_BATCHES), *flags],
+        cwd=ROOT, env=os.environ | DRIVER_ENV, capture_output=True, text=True,
+        timeout=DRIVER_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-6000:])
+    check(proc.returncode == 0, f"python -m gloria_tpu_torch.run {' '.join(flags)} exited "
+                                f"{proc.returncode}")
+    lines = proc.stdout.splitlines()
+    report = json.loads(next(ln for ln in lines if ln.startswith("[run] "))[len("[run] "):])
+    (run_dir,) = [p for p in out.iterdir() if p.is_dir()]
+    with open(run_dir / "metrics_epoch.csv", newline="") as fh:
+        epochs = list(csv.DictReader(fh))
+    return {"wall_s": wall, "report": report, "dir": run_dir, "epochs": epochs,
+            "stdout": proc.stdout}
+
+
+def log_run(name: str, r: dict, card: str) -> None:
+    sec = r["report"]["seconds"]
+    start = r["wall_s"] - sec["main"]
+    log(f"[driver] run {name}: {r['wall_s']:.1f} s wall = process start, imports and exit "
+        f"{start:.1f} + CUDA init {sec['device_init']:.1f} + data module "
+        f"{sec['data_module']:.1f} + model build {sec['model_build']:.1f} + fit "
+        f"{sec.get('fit', 0.0):.1f} + test {sec.get('test', 0.0):.1f} s [{card}]")
+    for row in r["epochs"]:
+        pairs = DRIVER_BATCHES * TRAIN_BATCH
+        log(f"[driver] run {name} epoch at step {row['step']}: train_loss "
+            f"{float(row['train_loss']):.5f}, val_loss {float(row['val_loss']):.5f}; "
+            f"{pairs} pairs in {float(row['epoch_time']):.3f} s inside Trainer.fit, "
+            f"{pairs / float(row['epoch_time']):.1f} pairs/s (host clock over the train "
+            f"batches, read at the epoch's end) [{card}]")
+    for save in r["report"]["checkpoint_saves"]:
+        log(f"[driver] run {name} checkpoint {save['name']}: {save['gb']:.3f} GB, copy to the "
+            f"host {save['copy_s']:.2f} s, write {save['write_s']:.2f} s [{card}]")
+
+
+def phase_driver(card: str) -> dict:
+    """Phase 10: the port's driver trains the full-width pretrain config
+    on the card, resumes, tests, and serves its best checkpoint."""
+    import torch
+
+    from gloria_tpu_torch import api
+    from gloria_tpu_torch.configs import loads_config, save_config
+    from gloria_tpu_torch.serving import InferenceEngine
+    from gloria_tpu_torch.training.checkpoints import load_checkpoint_meta
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, overrides = driver_config()
+    log(f"[driver] {DRIVER_CONFIG} read by gloria_tpu_torch.configs.load_config; overrides: "
+        + ", ".join(f"{k}={v!r}" for k, v in overrides.items())
+        + "; the driver's environment adds " + ", ".join(f"{k}={v}" for k, v in DRIVER_ENV.items()))
+    params, ckpt_bytes = checkpoint_bytes(cfg)
+    work = Path(tempfile.mkdtemp(prefix="gloria_smoke_driver_"))
+    try:
+        free = shutil.disk_usage(work).free
+        # run A's two checkpoints stay until A is served; B's two come after
+        need = 2 * ckpt_bytes + (64 << 20)
+        log(f"[driver] temporary directory {work}: {free / 1e9:.1f} GB free; a training "
+            f"checkpoint of {params} parameters reckons to {ckpt_bytes / 1e9:.3f} GB "
+            f"(f32 weights and BatchNorm statistics, Adam's two moments); {need / 1e9:.2f} GB "
+            "needed at once")
+        check(free >= need, f"{need / 1e9:.2f} GB free in {work} for the driver's checkpoints "
+                            f"(found {free / 1e9:.2f} GB)")
+        cfg_path = work / "config.yaml"
+        save_config(cfg, str(cfg_path))
+        out: dict = {}
+
+        # ---- run A: --train --test, 2 epochs
+        a = run_driver(cfg_path, work / "A", "--train", "--test")
+        log_run("A", a, card)
+        check(len(a["epochs"]) == 2, "run A logged 2 epoch rows")
+        for row in a["epochs"]:
+            check(all(np.isfinite(float(row[k])) for k in ("train_loss", "val_loss")),
+                  f"run A epoch at step {row['step']}: finite train and val losses")
+        with open(a["dir"] / "metrics_test.csv", newline="") as fh:
+            test_loss = float(next(csv.DictReader(fh))["test_loss"])
+        check(np.isfinite(test_loss), "run A: finite test_loss")
+        steps = a["report"]["global_step"]
+        check(steps == 2 * DRIVER_BATCHES, f"run A: global_step {steps} == 4")
+        eval_steps = 2 * DRIVER_BATCHES + DRIVER_BATCHES  # val in each epoch, then test
+        launches = a["report"]["launches"]
+        log(f"[driver] run A launches: local_sim_fwd {launches['local_sim_fwd']} ({steps} train "
+            f"steps + {eval_steps} val and test eval steps), local_sim_bwd "
+            f"{launches['local_sim_bwd']} ({steps} train steps); test_loss {test_loss:.5f}")
+        check(launches == {"local_sim_fwd": steps + eval_steps, "local_sim_bwd": steps},
+              "run A: one K1 launch a train and an eval step, one K2 launch a train step")
+        out["launches"] = (launches["local_sim_fwd"], launches["local_sim_bwd"])
+        manifest = json.loads((a["dir"] / "ckpt" / "manifest.json").read_text())
+        check(len(manifest["entries"]) == 2 and manifest["last"] == "step_00000004",
+              "run A: manifest with both epochs' entries and last")
+        best = loads_config((work / "A" / "best_ckpts.yaml").read_text()).seed_0
+        check(best is not None and (Path(best) / "state.pt").is_file(),
+              "best_ckpts.yaml names a checkpoint that exists")
+        size = (Path(best) / "state.pt").stat().st_size
+        log(f"[driver] best checkpoint {Path(best).name}: state.pt {size / 1e9:.3f} GB on disk "
+            f"(reckoned {ckpt_bytes / 1e9:.3f} GB)")
+        check(abs(size - ckpt_bytes) < 0.01 * ckpt_bytes, "checkpoint size as reckoned")
+
+        # ---- serve A's best checkpoint, on the card and on the CPU
+        classes = api.generate_chexpert_class_prompts()
+        imgs = (np.random.RandomState(3).rand(5, 224, 224, 3) * 255).astype(np.uint8)
+        scores, load_s = {}, {}
+        for device in ("cuda", "cpu"):
+            t = time.perf_counter()
+            gm = api.load_gloria(best, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            load_s[device] = time.perf_counter() - t
+            scores[device] = InferenceEngine(gm, classes).classify(imgs)
+            del gm
+        torch.cuda.empty_cache()
+        err = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+        log(f"[driver] load_gloria({Path(best).name}): {load_s['cuda']:.2f} s onto the card, "
+            f"{load_s['cpu']:.2f} s onto the CPU [{card}]; zero-shot scores of 5 images, card vs "
+            f"CPU: max_abs_diff={err:.3e} (tol {SLICE_TOL})")
+        check(scores["cuda"].shape == (5, len(classes)) and bool(np.isfinite(scores["cuda"]).all()),
+              "served scores finite with shape [5, classes]")
+        check(err <= SLICE_TOL, "a checkpoint written on the card serves the same on the CPU")
+        out["load_s"] = load_s
+        shutil.rmtree(work / "A")
+
+        # ---- run B: --train 1 epoch, then --resume to 2 with --test
+        b1 = run_driver(cfg_path, work / "B1", "--train", "--max_epochs", "1")
+        log_run("B (epoch 1)", b1, card)
+        b1_last = b1["dir"] / "ckpt" / json.loads(
+            (b1["dir"] / "ckpt" / "manifest.json").read_text())["last"]
+        b2 = run_driver(cfg_path, work / "B2", "--train", "--test", "--resume", "--ckpt",
+                        str(b1_last))
+        log_run("B (resumed)", b2, card)
+        rows = b1["epochs"] + b2["epochs"]
+        check([r["step"] for r in rows] == ["2", "4"], "run B's epochs at steps 2 and 4")
+        for row in rows:
+            check(all(np.isfinite(float(row[k])) for k in ("train_loss", "val_loss")),
+                  f"run B epoch at step {row['step']}: finite train and val losses")
+        check(b2["report"]["global_step"] == 4, "the resumed run ends at global_step 4")
+        state = load_checkpoint_meta(b2["dir"] / "ckpt" / "step_00000004")["trainer_state"]
+        val = [float(r["val_loss"]) for r in rows]
+        log(f"[driver] run B resumed from {b1_last.name}: trainer_state {json.dumps(state)}")
+        check(state["epoch"] == 2 and state["global_step"] == 4, "resumed epoch numbering")
+        check(state["scheduler"]["count"] == 2, "the scheduler's state carried over")
+        check(state["early_stopping"]["best"] == min(val)
+              and state["early_stopping"]["bad_epochs"] == int(val[1] >= val[0]),
+              "early stopping's state carried over")
+        out["runs"] = {"A": a, "B1": b1, "B2": b2}
+        out["test_loss"] = test_loss
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[driver] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1306,17 +1531,21 @@ def main() -> int:
 
     # ---- 9. fused tail: K3 and K4 on a ResNet-50 step's 16 bottleneck tails
     ft = phase_fused_tail(card)
+
+    # ---- 10. driver: python -m gloria_tpu_torch.run at full width -----------
+    dr = phase_driver(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 10. result lines -------------------------------------------------
+    # ---- 11. result lines -------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_fwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
-        "launches": main_path_launches + tr["launches"][0] + ld["launches"][0],
+        "launches": main_path_launches + tr["launches"][0] + ld["launches"][0]
+        + dr["launches"][0],
         "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0],
-                             "loader_train": ld["launches"][0]},
+                             "loader_train": ld["launches"][0], "driver": dr["launches"][0]},
         "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
         "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
         "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -1328,8 +1557,9 @@ def main() -> int:
         "name": "local_sim_bwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
-        "launches": tr["launches"][1] + ld["launches"][1],
-        "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1]},
+        "launches": tr["launches"][1] + ld["launches"][1] + dr["launches"][1],
+        "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1],
+                             "driver": dr["launches"][1]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",

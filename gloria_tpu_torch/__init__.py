@@ -7,7 +7,9 @@ It serves zero-shot classification (``api.load_gloria``,
 ``api.GloriaModel``, ``serving.InferenceEngine``,
 ``python -m gloria_tpu_torch.serving --ckpt <file.ckpt>``) and takes GLoRIA
 pretrain steps (``training.optim.make_optimizer``,
-``training.train.make_pretrain_steps``).  The local similarity runs as the
+``training.train.make_pretrain_steps``) and trains from a config file
+(``python -m gloria_tpu_torch.run -c <cfg> --train``: ``builder``,
+``training.trainer``, ``training.checkpoints``).  The local similarity runs as the
 hand-written CUDA kernels ``csrc/local_sim_fwd.cu`` (forward) and
 ``csrc/local_sim_bwd.cu`` (backward).  ``experiments.fused_bn`` keeps the
 archived fused bottleneck tail, which no model path calls, with its CUDA

@@ -3,7 +3,8 @@
 Port of ``gloria_tpu.api``'s inference surface: ``GloriaModel`` (host
 preprocessing, the two towers, global / local / combined similarities,
 zero-shot classification), ``generate_chexpert_class_prompts`` and
-``load_gloria`` for reference-format ``.ckpt`` files.
+``load_gloria`` for reference-format ``.ckpt`` files and for the port's own
+checkpoint directories (``training.checkpoints``).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device given and no card, the entry points raise.  They never fall back
@@ -24,7 +25,8 @@ import torch
 
 from . import constants
 from .configs import Config
-from .data.tokenizer import TextProcessor, WordPieceTokenizer, load_tokenizer
+from .data.tokenizer import (TextProcessor, WordPieceTokenizer, load_saved_tokenizer,
+                             load_tokenizer)
 from .data.transforms import build_transformation, letterbox_resize, to_rgb
 from .models.gloria_model import GLoRIA
 from .ops import gloria_loss
@@ -187,9 +189,12 @@ def generate_chexpert_class_prompts(n: int = 5) -> dict:
 
 def load_gloria(name: str = "gloria_resnet50", device=None, cfg_override: Config | None = None,
                 tokenizer: WordPieceTokenizer | None = None) -> GloriaModel:
-    """Load a registry name or a reference-format ``.ckpt`` (the reference zoo
+    """Load a registry name, a reference-format ``.ckpt`` (the reference zoo
     format, which ``python -m gloria_tpu.utils.torch_export`` writes from any
-    JAX checkpoint)."""
+    JAX checkpoint) or a checkpoint directory of the port (``state.pt``; a
+    training checkpoint gives the model only its weights).  The config comes
+    from the directory's meta file, the tokenizer from ``<name>.tokenizer/``
+    or else the manager's ``tokenizer/`` beside it."""
     if name in _MODELS:
         ckpt_path = _MODELS[name]
     elif os.path.exists(name):
@@ -200,6 +205,19 @@ def load_gloria(name: str = "gloria_resnet50", device=None, cfg_override: Config
         raise RuntimeError(f"Model {name} not found. Download the pretrained weights from the "
                            f"GLoRIA zoo and place them at {ckpt_path}.")
     if Path(ckpt_path).is_dir():
+        from .training.checkpoints import is_checkpoint, load_checkpoint
+
+        if is_checkpoint(ckpt_path):
+            path = Path(ckpt_path)
+            payload, saved_cfg = load_checkpoint(path)
+            if tokenizer is None:
+                for cand in (path.parent / f"{path.name}.tokenizer", path.parent / "tokenizer"):
+                    tokenizer = load_saved_tokenizer(cand)
+                    if tokenizer is not None:
+                        break
+            state = payload["model"] if "model" in payload else payload
+            return GloriaModel(cfg_override or saved_cfg or Config(), state, tokenizer,
+                               device=device)
         raise RuntimeError(
             f"{ckpt_path} is a directory (a gloria_tpu orbax checkpoint); convert it first with "
             f"`python -m gloria_tpu.utils.torch_export {ckpt_path} <out.ckpt>` and load the .ckpt")

@@ -14,6 +14,7 @@ strings and cap_lens.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import unicodedata
@@ -160,6 +161,19 @@ class WordPieceTokenizer:
                 uniq.append(tok)
         return cls(uniq, lower=lower)
 
+    # -- persistence ---------------------------------------------------------
+    def save_vocab(self, directory: str | Path) -> Path:
+        """Write ``vocab.txt`` (HF format: one token per line, in id order)
+        and ``tokenizer_config.json`` (``{"lower": ...}``) into ``directory``,
+        byte for byte as the JAX package writes them, so that a checkpoint
+        carries the exact training tokenizer (:func:`load_saved_tokenizer`)."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        ordered = [t for t, _ in sorted(self.vocab.items(), key=lambda kv: kv[1])]
+        (directory / "vocab.txt").write_text("\n".join(ordered) + "\n", encoding="utf-8")
+        (directory / "tokenizer_config.json").write_text(json.dumps({"lower": self.lower}))
+        return directory / "vocab.txt"
+
     # -- tokenization ----------------------------------------------------------
     def wordpiece(self, word: str) -> list[str]:
         if len(word) > self.max_chars:
@@ -212,6 +226,21 @@ class WordPieceTokenizer:
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)
+
+
+def load_saved_tokenizer(directory: str | Path) -> "WordPieceTokenizer | None":
+    """A tokenizer written by :meth:`WordPieceTokenizer.save_vocab`
+    (``vocab.txt`` and, if present, ``tokenizer_config.json``); None when
+    ``directory`` holds no ``vocab.txt``."""
+    directory = Path(directory)
+    vocab_file = directory / "vocab.txt"
+    if not vocab_file.exists():
+        return None
+    lower = False
+    cfg_file = directory / "tokenizer_config.json"
+    if cfg_file.exists():
+        lower = bool(json.loads(cfg_file.read_text()).get("lower", False))
+    return WordPieceTokenizer.from_vocab_file(vocab_file, lower=lower)
 
 
 def load_tokenizer(bert_type: str | None = None, vocab_file: str | None = None,

@@ -182,7 +182,7 @@ class GLoRIA(nn.Module):
             if g[key] is not None:
                 raise NotImplementedError(
                     f"model.gloria.{key}: the flat-attention ablation losses are not ported yet "
-                    "(queued in ROADMAP.md A1)")
+                    "(queued in ROADMAP.md A1.6)")
         supervise = segmentation_labels is not None and bool(g.segmentation_loss_weight)
         if supervise and grid is None:
             raise ValueError("the attention-supervision loss needs the local features' grid (h, w)")

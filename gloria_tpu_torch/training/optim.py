@@ -17,13 +17,16 @@ skip-on-non-finite guard.  The update follows the optax chain step for step:
    step in ``total_notfinite``.
 
 The guard's decisions stay on the device (``torch.where``), so a step needs
-no device→host read.  The epoch-level LR schedulers, the freeze flags and
-optax's flattened layout are not ported.
+no device→host read.  The epoch-level LR schedulers (:class:`LRScheduler`)
+run on the host; the trainer pushes their rate into :class:`OptState` with
+:func:`set_learning_rate`.  The freeze flags (ROADMAP.md A5) and optax's
+flattened layout are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -143,3 +146,82 @@ def set_learning_rate(state: OptState, lr: float) -> OptState:
 
 def get_learning_rate(state: OptState) -> float:
     return state.lr
+
+
+# ---------------------------------------------------------------------------
+# Schedulers (epoch-keyed multipliers; plateau is metric-driven)
+# ---------------------------------------------------------------------------
+
+def warmup_lambda(epoch: int) -> float:
+    """The reference builder's warm-up multiplier of epoch ``epoch``."""
+    if epoch <= 3:
+        return 0.001 + epoch * 0.003
+    if epoch >= 22:
+        return 0.01 * (1 - epoch / 200.0) ** 0.9
+    return 0.01
+
+
+@dataclasses.dataclass
+class LRScheduler:
+    """Host-side LR controller (``gloria_tpu.training.optim.LRScheduler``):
+    ``step(metric)`` once per epoch, then push ``current_lr`` into the
+    optimizer state with :func:`set_learning_rate`."""
+
+    name: str
+    base_lr: float
+    factor: float = 0.5
+    patience: int = 5
+    t_max: int = 10
+    gamma: float = 0.8
+    mode: str = "min"
+    # state
+    count: int = 0
+    best: float = math.inf
+    bad_epochs: int = 0
+    current_lr: float = 0.0
+
+    def __post_init__(self):
+        self.current_lr = self.base_lr if self.name != "warmup" else self.base_lr * warmup_lambda(0)
+        if self.mode == "max":
+            self.best = -math.inf
+
+    def step(self, metric: float | None = None) -> float:
+        self.count += 1
+        e = self.count
+        if self.name == "warmup":
+            self.current_lr = self.base_lr * warmup_lambda(e)
+        elif self.name == "cos":
+            self.current_lr = self.base_lr * (1 + math.cos(math.pi * e / self.t_max)) / 2
+        elif self.name == "step":
+            self.current_lr = self.base_lr * (self.gamma ** e)
+        elif self.name == "plateau":
+            if metric is not None:
+                improved = metric < self.best if self.mode == "min" else metric > self.best
+                if improved:
+                    self.best = metric
+                    self.bad_epochs = 0
+                else:
+                    self.bad_epochs += 1
+                    if self.bad_epochs > self.patience:
+                        self.current_lr *= self.factor
+                        self.bad_epochs = 0
+        elif self.name in (None, "none", "const"):
+            pass
+        else:
+            raise ValueError(f"unknown scheduler: {self.name}")
+        return self.current_lr
+
+    def state_dict(self) -> dict:
+        return {k: getattr(self, k) for k in ("count", "best", "bad_epochs", "current_lr")}
+
+    def load_state_dict(self, d: dict) -> None:
+        for k, v in d.items():
+            setattr(self, k, v)
+
+
+def make_scheduler(cfg: Config) -> LRScheduler:
+    """``train.scheduler.name`` (none when absent) at the optimizer's LR."""
+    train = cfg.train or Config()
+    sch = train.scheduler or Config()
+    trainer = cfg.lightning.trainer if cfg.lightning and cfg.lightning.trainer else Config()
+    return LRScheduler(name=(sch.name or "none"), base_lr=float(trainer.lr or train.lr or 1e-4))

@@ -55,20 +55,21 @@ def create_train_state(model: GLoRIA, optimizer: Optimizer, seed: int = 0,
 def _refuse_unported(cfg: Config) -> None:
     m = cfg.model or Config()
     trainer = cfg.lightning.trainer if cfg.lightning and cfg.lightning.trainer else Config()
-    unported = {
-        "model.image_transformer": m.image_transformer,
-        "model.text.freeze_bert": m.text and m.text.freeze_bert,
-        "model.vision.freeze_cnn": m.vision and m.vision.freeze_cnn,
-        "model.train_last_local_image_layer": m.train_last_local_image_layer,
-        "model.train_prompt": m.train_prompt,
-        "lightning.trainer.accumulate_grad_batches": (trainer.accumulate_grad_batches or 1) > 1,
-        "train.steps_per_dispatch": ((cfg.train.steps_per_dispatch if cfg.train else None)
-                                     or 1) > 1,
+    unported = {  # key: (set?, the ROADMAP.md item that ports it)
+        "model.image_transformer": (m.image_transformer, "A1.7"),
+        "model.text.freeze_bert": (m.text and m.text.freeze_bert, "A5"),
+        "model.vision.freeze_cnn": (m.vision and m.vision.freeze_cnn, "A5"),
+        "model.train_last_local_image_layer": (m.train_last_local_image_layer, "A5"),
+        "model.train_prompt": (m.train_prompt, "A5"),
+        "lightning.trainer.accumulate_grad_batches": (
+            int(trainer.accumulate_grad_batches or 1) > 1, "A1.8"),
+        "train.steps_per_dispatch": (
+            int((cfg.train.steps_per_dispatch if cfg.train else None) or 1) > 1, "A1.8"),
     }
-    for key, value in unported.items():
+    for key, (value, item) in unported.items():
         if value:
             raise NotImplementedError(f"{key}: training with it is not ported yet "
-                                      "(queued in ROADMAP.md A1)")
+                                      f"(queued in ROADMAP.md {item})")
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

@@ -24,7 +24,10 @@ versions, both sides f32 with TF32 off:
   entries differing; s1, s2 at 1e-4; dy2 at one ulp of its largest entry;
   dscale, dshift, dW at 1e-3 of their largest: f32 sums in another order,
   which K4's atomics change from call to call).  K3 has no atomics, so two
-  calls on the same inputs agree bit for bit.
+  calls on the same inputs agree bit for bit;
+- the driver (``gloria_tpu_torch.run.main``) at a tiny width: its launch
+  counts exactly, and its best checkpoint's similarities on the card
+  against the CPU at KERNEL_TOL.
 """
 
 import numpy as np
@@ -425,3 +428,62 @@ def test_attention_supervised_step_card_matches_cpu(card):
     assert float(cm["attn_seg_loss"]) > 0
     gn, cn = float(optim.global_norm(gg)), float(optim.global_norm(cg))
     assert abs(gn - cn) <= 1e-3 * cn
+
+
+DRIVER_CFG = {
+    "experiment_name": "card_driver",
+    "random_seed": 0,
+    "lightning": {
+        "trainer": {"max_epochs": 2, "gradient_clip_val": 0.25, "lr": 5e-4, "precision": 32},
+        "checkpoint_callback": {"monitor": "val_loss", "save_last": True, "mode": "min",
+                                "save_top_k": 1},
+        "early_stopping_callback": {"monitor": "val_loss", "patience": 10, "mode": "min"},
+    },
+    "model": {
+        "gloria": {"temp1": 4.0, "temp2": 5.0, "temp3": 10.0},
+        "vision": {"model_name": "resnet_18", "encoder_input_size": 0},
+        "text": {"embedding_dim": 32, "last_n_layers": 4, "agg_tokens": True,
+                 "aggregate_method": "sum",
+                 "bert_config": {"vocab_size": 256, "hidden_size": 32, "num_layers": 1,
+                                 "num_heads": 4, "intermediate_size": 64,
+                                 "max_position_embeddings": 48}},
+    },
+    "data": {"dataset": "synthetic", "synthetic_size": 16, "text": {"word_num": 24},
+             "image": {"imsize": 64}},
+    "transforms": {"norm": "half", "random_crop": {"crop_size": 48}},
+    "train": {"batch_size": 8, "num_workers": 2,
+              "optimizer": {"name": "Adam", "weight_decay": 1e-6},
+              "scheduler": {"name": "plateau", "monitor": "val_loss"}},
+}
+
+
+@pytest.mark.cuda
+def test_driver_trains_and_serves_on_the_card(card, tmp_path):
+    """The driver's ``main`` on the card at a tiny width: one K1 launch a
+    train and an eval step, one K2 launch a train step, finite losses; its
+    best checkpoint serves the same similarities on the card as on the CPU
+    (KERNEL_TOL)."""
+    from gloria_tpu_torch import api, run
+    from gloria_tpu_torch.configs import Config
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        cfg = Config(DRIVER_CFG)
+        args = run.get_parser().parse_args(["-c", "unused.yaml", "--train", "--test",
+                                            "--limit_batches", "2"])
+        run.apply_overrides(cfg, args)
+        cfg.output_dir = str(tmp_path)
+        results = run.main(cfg, args)  # no device: the card
+        report = results["run"]
+        assert report["global_step"] == 4
+        assert report["launches"] == {"local_sim_fwd": 4 + 2 * 2 + 2, "local_sim_bwd": 4}
+        assert np.isfinite(results["test"]["test_loss"])
+        served = {d: api.load_gloria(results["best_ckpt"], device=d) for d in ("cuda", "cpu")}
+        rng = np.random.RandomState(0)
+        imgs = rng.rand(3, 48, 48, 3).astype(np.float32)
+        txts = served["cpu"].process_text(["small pleural effusion", "no acute process"])
+        sims = {d: gm.get_similarities(imgs, txts) for d, gm in served.items()}
+        assert np.isfinite(sims["cuda"]).all()
+        np.testing.assert_allclose(sims["cuda"], sims["cpu"], rtol=0, atol=KERNEL_TOL)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports no JAX and nothing of ``gloria_tpu``, its
+"""The port stands alone: it imports no JAX, nothing of ``gloria_tpu`` and no
+PyYAML (absent on the card's machine; the port reads configs itself), its
 entry points refuse to pick the CPU on their own, and ``chip_smoke.py`` fails
 where there is no card or no checkout around it."""
 
@@ -18,7 +19,7 @@ from gloria_tpu_torch.configs import Config
 from gloria_tpu_torch.models.gloria_model import init_gloria
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "gloria_tpu")
+FORBIDDEN = ("jax", "flax", "gloria_tpu", "yaml")
 
 
 def _port_files():
@@ -46,6 +47,20 @@ def test_static_scan_imports_no_jax_or_gloria_tpu():
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, gloria_tpu_torch, gloria_tpu_torch.api, gloria_tpu_torch.serving, "
             "gloria_tpu_torch.utils.weights, gloria_tpu_torch.utils.cuda_build; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gloria_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_driver_reads_every_config_with_yaml_blocked():
+    code = ("import sys, glob; sys.modules['yaml'] = None; "
+            "import gloria_tpu_torch.run, gloria_tpu_torch.builder; "
+            "from gloria_tpu_torch.configs import load_config; "
+            "cfgs = [load_config(p) for p in sorted(glob.glob('configs/*.yaml'))]; "
+            "assert len(cfgs) >= 7 and all(c.model for c in cfgs); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gloria_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
