@@ -100,7 +100,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the card and on the CPU within phase 4's tolerance.  Each run's wall
    time and its split, pairs/s inside ``Trainer.fit``, each checkpoint
    save's seconds and GB, and ``load_gloria``'s seconds.
-11. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   The best checkpoint of run A is kept for phase 11.
+11. tasks  — the downstream tasks at full width from phase 10's best
+   checkpoint, every kernel count set to 0 before and read after (the path
+   launches none): ``configs/chexpert_classification_config.yaml``
+   (``gloria_resnet50``, 5 targets, 224 crops upsampled to 299², the encoder
+   frozen, BCE) and ``configs/pneumothorax_segmentation_config.yaml`` (the
+   U-Net on ResNet-50 at 512², MixedLoss α=10, all trainable), each read by
+   the port's config reader with the overrides printed (``data.dataset:
+   synthetic``, two batches a split; ``precision: 32``; ``max_epochs: 1``;
+   wandb off and no hub through the environment).  For each: one train step
+   on the card and on the CPU from the same grafted weights at B=2 (loss and
+   per-tensor relative L2 of the gradients, TASK_LOSS_RTOL / TASK_GRAD_L2);
+   the train step at the config's batch (64, 8) on the card, median of 5
+   after a warm-up from CUDA events, images/s, peak memory, the checkpoint
+   size reckoned, and where the step goes (forward, backward, optimizer); ``python -m gloria_tpu_torch.run -c <config> --ckpt <phase
+   10's best> --train --test --limit_batches 2``: one epoch, finite
+   ``val_auroc`` / ``val_dice``, the frozen encoder's parameters equal to
+   the checkpoint's after training, the checkpoint's size on disk as
+   reckoned, no kernel launch reported.
+12. one ``{"kernels": [...]}`` line (``launches_by_path`` with a ``tasks``
+   entry for every kernel), then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -169,6 +189,23 @@ DRIVER_TIMEOUT_S = 300
 # the config's WandbLogger mirror stays off and nothing looks for a hub:
 # the machine that runs this has no network
 DRIVER_ENV = {"WANDB_MODE": "disabled", "HF_HUB_OFFLINE": "1"}
+# phase 11: the downstream tasks' shipped configs, their batches and image sizes
+TASK_CONFIGS = {"classification": "configs/chexpert_classification_config.yaml",
+                "segmentation": "configs/pneumothorax_segmentation_config.yaml"}
+TASK_CHECK_BATCH = 2  # card vs CPU
+TASK_STEPS = 5        # timed steps at the config's batch, after one warm-up
+# card vs CPU on one task step.  Classification: the backbone is frozen, so
+# only the head's (and the unused embedders') gradients exist, smooth
+# functions of the pooled features, which agree to ~1e-6 relative.
+# Segmentation: every U-Net parameter trains, and the train-mode gradient is
+# badly conditioned (tests/test_torch_port_tasks.py: at ResNet-18, 64 px, a
+# 1e-9 relative move of the input moves a gradient by 7.5e-6 relative L2 in
+# float64, and the f32 gradient sits 6.0e-3 from the float64 one), so its
+# tensors are held at 5e-2 relative L2, and the ConvBlocks' conv biases,
+# whose exact gradient is 0 (a train-mode BatchNorm follows), in norm at
+# 1e-4 of the whole gradient's.
+TASK_LOSS_RTOL = {"classification": 1e-4, "segmentation": 1e-3}
+TASK_GRAD_L2 = {"classification": 1e-3, "segmentation": 5e-2}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1250,9 +1287,10 @@ def log_run(name: str, r: dict, card: str) -> None:
             f"host {save['copy_s']:.2f} s, write {save['write_s']:.2f} s [{card}]")
 
 
-def phase_driver(card: str) -> dict:
+def phase_driver(card: str, keep: Path) -> dict:
     """Phase 10: the port's driver trains the full-width pretrain config
-    on the card, resumes, tests, and serves its best checkpoint."""
+    on the card, resumes, tests, and serves its best checkpoint, which it
+    then moves into ``keep`` for phase 11 (``out["best"]``)."""
     import torch
 
     from gloria_tpu_torch import api
@@ -1270,8 +1308,9 @@ def phase_driver(card: str) -> dict:
     work = Path(tempfile.mkdtemp(prefix="gloria_smoke_driver_"))
     try:
         free = shutil.disk_usage(work).free
-        # run A's two checkpoints stay until A is served; B's two come after
-        need = 2 * ckpt_bytes + (64 << 20)
+        # run A's two checkpoints stay until A is served; then its best one
+        # stays (for phase 11) while B's two come
+        need = 3 * ckpt_bytes + (64 << 20)
         log(f"[driver] temporary directory {work}: {free / 1e9:.1f} GB free; a training "
             f"checkpoint of {params} parameters reckons to {ckpt_bytes / 1e9:.3f} GB "
             f"(f32 weights and BatchNorm statistics, Adam's two moments); {need / 1e9:.2f} GB "
@@ -1334,6 +1373,8 @@ def phase_driver(card: str) -> dict:
               "served scores finite with shape [5, classes]")
         check(err <= SLICE_TOL, "a checkpoint written on the card serves the same on the CPU")
         out["load_s"] = load_s
+        out["best"] = keep / Path(best).name
+        shutil.move(best, out["best"])
         shutil.rmtree(work / "A")
 
         # ---- run B: --train 1 epoch, then --resume to 2 with --test
@@ -1363,6 +1404,222 @@ def phase_driver(card: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[driver] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
+def task_config(phase: str):
+    """Phase 11's config of ``phase``: the shipped config with the overrides
+    the card's run needs, each returned for printing."""
+    from gloria_tpu_torch.configs import load_config
+
+    cfg = load_config(str(ROOT / TASK_CONFIGS[phase]))
+    overrides = {
+        "data.dataset": "synthetic",  # the repository holds no CheXpert or SIIM data
+        # two batches a split at the config's batch size
+        "data.synthetic_size": DRIVER_BATCHES * int(cfg.train.batch_size),
+        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
+        "lightning.trainer.max_epochs": 1,
+    }
+    for path, value in overrides.items():
+        cfg.set_path(path, value)
+    return cfg, overrides
+
+
+def task_batch(phase: str, cfg, n: int, seed: int) -> dict:
+    """``n`` images at the size the task's model sees (the crop, or the
+    segmentation size) and labels: random multi-label targets, or a
+    rectangle mask."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    if phase == "classification":
+        size = int(cfg.transforms.random_crop.crop_size)
+        labels = (rng.rand(n, int(cfg.model.vision.num_targets)) > 0.5).astype(np.float32)
+    else:
+        size = int(cfg.data.image.imsize)
+        labels = np.zeros((n, size, size), np.float32)
+        labels[:, size // 4 : size // 2, size // 3 : 2 * size // 3] = 1.0
+    return {"imgs": torch.from_numpy(rng.randn(n, size, size, 3).astype(np.float32)),
+            "labels": torch.from_numpy(labels)}
+
+
+def task_checkpoint_bytes(model, optimizer) -> tuple[int, int, int]:
+    """(parameters, trainable parameters, bytes of a training checkpoint:
+    f32 weights, BatchNorm statistics and Adam's two moments of the
+    trainable parameters)."""
+    params = sum(p.numel() for p in model.parameters())
+    trainable = sum(p.numel() for p in optimizer.select(list(model.parameters())))
+    buffers = sum(t.numel() for t in model.state_dict().values()) - params
+    return params, trainable, 4 * (params + buffers + 2 * trainable)
+
+
+def phase_tasks(card: str, pretrain_ckpt: Path, driver_s: float) -> dict:
+    """Phase 11: the downstream tasks at full width.  For each task: one
+    train step card vs CPU at B=2, the step at the config's batch (CUDA
+    events, peak memory), and ``python -m gloria_tpu_torch.run`` on the
+    shipped config from phase 10's best checkpoint."""
+    import torch
+
+    from gloria_tpu_torch import builder
+    from gloria_tpu_torch.configs import save_config
+    from gloria_tpu_torch.experiments import fused_bn
+    from gloria_tpu_torch.ops import local_sim
+    from gloria_tpu_torch.training.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gloria = load_checkpoint(pretrain_ckpt)[0]["model"]
+    log(f"[tasks] the pretrained encoder: {pretrain_ckpt.name} of phase 10 ({len(gloria)} "
+        "tensors)")
+    # ---- the task path starts: every kernel count at 0
+    local_sim.launches = local_sim.launches_bwd = 0
+    fused_bn.launches_fwd = fused_bn.launches_bwd = 0
+    out: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="gloria_smoke_tasks_"))
+    try:
+        for phase in ("classification", "segmentation"):
+            cfg, overrides = task_config(phase)
+            log(f"[tasks] {TASK_CONFIGS[phase]} read by gloria_tpu_torch.configs.load_config; "
+                "overrides: " + ", ".join(f"{k}={v!r}" for k, v in overrides.items())
+                + "; the driver's environment adds "
+                + ", ".join(f"{k}={v}" for k, v in DRIVER_ENV.items()))
+            r: dict = {}
+
+            # ---- card vs CPU: one step from the same weights
+            t = time.perf_counter()
+            batch = task_batch(phase, cfg, TASK_CHECK_BATCH, seed=11)
+            grads, losses = {}, {}
+            for device in ("cpu", "cuda"):
+                task, _ = builder.init_task(cfg, pretrained=gloria, seed=0, device=device)
+                names = [n for n, p in task.model.named_parameters() if p.requires_grad]
+                b = {k: v.to(device) for k, v in batch.items()}
+                loss, logits, g = task.loss_and_grads(b)
+                check(bool(torch.isfinite(logits).all()), f"{phase} {device}: finite logits")
+                losses[device] = float(loss)
+                grads[device] = [x.detach().double().cpu() for x in g]
+                del task, b, loss, logits, g
+            torch.cuda.empty_cache()
+            zero = {n for n in names if ("conv_block" in n or "bridge" in n)
+                    and n.endswith("conv.bias")}
+            total = float(torch.linalg.vector_norm(torch.stack([x.norm() for x in grads["cpu"]])))
+            l2 = {n: float((gg - gc).norm() / gc.norm().clamp_min(1e-30))
+                  for n, gg, gc in zip(names, grads["cuda"], grads["cpu"]) if n not in zero}
+            zero_norm = max([float(gg.norm()) for n, gg in zip(names, grads["cuda"])
+                             if n in zero] + [0.0])
+            worst = max(l2, key=l2.get)
+            loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            log(f"[tasks] {phase} card vs CPU at B={TASK_CHECK_BATCH} "
+                f"({time.perf_counter() - t:.1f} s): loss {losses['cuda']:.6f} vs "
+                f"{losses['cpu']:.6f}, relative {loss_err:.2e} (tol {TASK_LOSS_RTOL[phase]}); "
+                f"{len(names)} trainable tensors, worst relative L2 {l2[worst]:.2e} ({worst}; "
+                f"tol {TASK_GRAD_L2[phase]}); conv biases ahead of a BatchNorm: "
+                f"{len(zero)}, largest gradient norm {zero_norm:.2e} against the whole "
+                f"gradient's {total:.2e}")
+            check(loss_err <= TASK_LOSS_RTOL[phase], f"{phase}: loss card vs CPU")
+            check(l2[worst] <= TASK_GRAD_L2[phase], f"{phase}: gradients card vs CPU")
+            check(zero_norm <= 1e-4 * total, f"{phase}: zero-gradient conv biases")
+            r["card_vs_cpu"] = {"loss_rel": loss_err, "grad_l2": l2[worst], "worst": worst}
+            del grads
+
+            # ---- the step at the config's batch, on the card
+            bs = int(cfg.train.batch_size)
+            task, state = builder.init_task(cfg, pretrained=gloria, seed=0, device="cuda")
+            task.model.to(memory_format=torch.channels_last)
+            params, trainable, ckpt_bytes = task_checkpoint_bytes(task.model, task.optimizer)
+            batch = {k: v.cuda() for k, v in task_batch(phase, cfg, bs, seed=12).items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = task.train_step(state, batch)  # warm-up
+            ms = []
+            for _ in range(TASK_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = task.train_step(state, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            check(bool(torch.isfinite(m["loss"])), f"{phase}: finite loss at B={bs}")
+            peak = torch.cuda.max_memory_allocated()
+            step_ms = statistics.median(ms)
+
+            def forward():  # the step's train-mode forward and loss, graph built
+                task.model.train()
+                return task._loss(task.model(batch["imgs"]), batch["labels"])
+
+            fwd_ms = cuda_ms(forward, iters=1)
+            fwd_bwd_ms = cuda_ms(lambda: task.loss_and_grads(batch), iters=1)
+            log(f"[tasks] {phase} where the step at B={bs} goes (each part timed alone, CUDA "
+                f"events, median of 5): forward and loss {fwd_ms:.2f} ms, backward "
+                f"{fwd_bwd_ms - fwd_ms:.2f} ms, the optimizer update (the step less both) "
+                f"{step_ms - fwd_bwd_ms:.2f} ms [{card}]")
+            log(f"[tasks] {phase} train step at B={bs} ({cfg.model.vision.model_name}, "
+                f"{tuple(batch['imgs'].shape[1:3])} px"
+                + (", upsampled to 299" if phase == "classification" else "")
+                + f", {params} parameters, {trainable} trainable): median of {TASK_STEPS} "
+                f"{step_ms:.2f} ms (CUDA events; all {', '.join(f'{x:.2f}' for x in ms)}), "
+                f"{bs / step_ms * 1e3:.1f} images/s, peak memory {peak / 2**30:.2f} GiB; a "
+                f"training checkpoint reckons to {ckpt_bytes / 1e9:.3f} GB [{card}]")
+            r.update(step_ms=step_ms, images_per_s=bs / step_ms * 1e3, peak_gib=peak / 2**30,
+                     params=params, trainable=trainable, ckpt_bytes=ckpt_bytes,
+                     forward_ms=fwd_ms, backward_ms=fwd_bwd_ms - fwd_ms)
+            del task, state, batch, m
+            torch.cuda.empty_cache()
+
+            # ---- the driver on the shipped config
+            cfg_path = work / f"{phase}.yaml"
+            save_config(cfg, str(cfg_path))
+            d = run_driver(cfg_path, work / phase, "--train", "--test", "--ckpt",
+                           str(pretrain_ckpt))
+            sec = d["report"]["seconds"]
+            row = d["epochs"][0]
+            metric = "val_auroc" if phase == "classification" else "val_dice"
+            log(f"[tasks] {phase} driver: {d['wall_s']:.1f} s wall = process start, imports "
+                f"and exit {d['wall_s'] - sec['main']:.1f} + data module "
+                f"{sec['data_module']:.1f} + model build and graft {sec['model_build']:.1f} + "
+                f"fit {sec.get('fit', 0.0):.1f} + test {sec.get('test', 0.0):.1f} s; epoch: "
+                f"train_loss {float(row['train_loss']):.5f}, val_loss "
+                f"{float(row['val_loss']):.5f}, {metric} {float(row[metric]):.5f}; "
+                f"{DRIVER_BATCHES * bs} images in {float(row['epoch_time']):.3f} s inside "
+                f"Trainer.fit [{card}]")
+            check(len(d["epochs"]) == 1 and d["report"]["global_step"] == DRIVER_BATCHES,
+                  f"{phase} driver: one epoch of {DRIVER_BATCHES} steps")
+            check(all(np.isfinite(float(row[k])) for k in ("train_loss", "val_loss", metric)),
+                  f"{phase} driver: finite train_loss, val_loss and {metric}")
+            test = d["stdout"].splitlines()[-1]
+            check(metric in test, f"{phase} driver: {metric} in the test results")
+            check(d["report"]["launches"] == {"local_sim_fwd": 0, "local_sim_bwd": 0},
+                  f"{phase} driver: no local-similarity kernel on the task path")
+            best = json.loads((d["dir"] / "ckpt" / "manifest.json").read_text())["last"]
+            trained = load_checkpoint(d["dir"] / "ckpt" / best)[0]["model"]
+            size = (d["dir"] / "ckpt" / best / "state.pt").stat().st_size
+            saves = d["report"]["checkpoint_saves"]
+            log(f"[tasks] {phase} checkpoint {best}: state.pt {size / 1e9:.3f} GB on disk "
+                f"(reckoned {ckpt_bytes / 1e9:.3f} GB); save: copy to the host "
+                f"{saves[0]['copy_s']:.2f} s, write {saves[0]['write_s']:.2f} s [{card}]")
+            check(abs(size - ckpt_bytes) < 0.01 * ckpt_bytes, f"{phase}: checkpoint size")
+            if phase == "classification":
+                frozen = [k for k in trained if k.startswith(BACKBONE)
+                          and not k.endswith(("running_mean", "running_var"))]
+                same = all(torch.equal(trained[k], gloria[k]) for k in frozen)
+                log(f"[tasks] classification: {len(frozen)} frozen encoder parameters equal to "
+                    f"the pretrain checkpoint's after training: {same}")
+                check(bool(frozen) and same, "the frozen encoder kept the checkpoint's weights")
+            else:
+                check(0.0 <= float(row[metric]) <= 1.0, "val_dice in [0, 1]")
+            r["driver"] = {"wall_s": d["wall_s"], "seconds": sec, metric: float(row[metric]),
+                           "ckpt_gb": size / 1e9}
+            shutil.rmtree(work / phase)
+            out[phase] = r
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = {  # ---- the task path ends: its in-process kernel counts
+        "local_sim_fwd": local_sim.launches, "local_sim_bwd": local_sim.launches_bwd,
+        "fused_bn_fwd": fused_bn.launches_fwd, "fused_bn_bwd": fused_bn.launches_bwd}
+    log(f"[tasks] kernel launches on the task path (this process; each driver run reported "
+        f"0 local-similarity launches): {json.dumps(out['launches'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tasks] phase {out['seconds']:.1f} s, beside phase 10's {driver_s:.1f} s [{card}]")
     return out
 
 
@@ -1532,11 +1789,19 @@ def main() -> int:
     # ---- 9. fused tail: K3 and K4 on a ResNet-50 step's 16 bottleneck tails
     ft = phase_fused_tail(card)
 
-    # ---- 10. driver: python -m gloria_tpu_torch.run at full width -----------
-    dr = phase_driver(card)
+    keep = Path(tempfile.mkdtemp(prefix="gloria_smoke_pretrained_"))
+    try:
+        # ---- 10. driver: python -m gloria_tpu_torch.run at full width -------
+        t10 = time.perf_counter()
+        dr = phase_driver(card, keep)
+
+        # ---- 11. tasks: classification and segmentation from phase 10's best
+        tk = phase_tasks(card, dr["best"], time.perf_counter() - t10)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 11. result lines -------------------------------------------------
+    # ---- 12. result lines -------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
@@ -1545,7 +1810,8 @@ def main() -> int:
         "launches": main_path_launches + tr["launches"][0] + ld["launches"][0]
         + dr["launches"][0],
         "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0],
-                             "loader_train": ld["launches"][0], "driver": dr["launches"][0]},
+                             "loader_train": ld["launches"][0], "driver": dr["launches"][0],
+                             "tasks": tk["launches"]["local_sim_fwd"]},
         "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
         "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
         "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -1559,7 +1825,8 @@ def main() -> int:
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
         "launches": tr["launches"][1] + ld["launches"][1] + dr["launches"][1],
         "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1],
-                             "driver": dr["launches"][1]},
+                             "driver": dr["launches"][1],
+                             "tasks": tk["launches"]["local_sim_bwd"]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -1569,7 +1836,8 @@ def main() -> int:
         "name": f"fused_bn_{key}", "route": "cuda",
         "source": f"gloria_tpu_torch/csrc/fused_bn_{key}.cu",
         "replaces": f"scripts/experiments/fused_bn.py:{line}",
-        "launches": launches, "launches_by_path": {"fused_tail": launches},
+        "launches": launches,
+        "launches_by_path": {"fused_tail": launches, "tasks": tk["launches"][f"fused_bn_{key}"]},
         "max_abs_err": ft["worst"][key][0], "max_err_over_tol": ft["worst"][key][1],
         "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
         "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],

@@ -2,9 +2,12 @@
 
 Port of ``gloria_tpu.api``'s inference surface: ``GloriaModel`` (host
 preprocessing, the two towers, global / local / combined similarities,
-zero-shot classification), ``generate_chexpert_class_prompts`` and
+zero-shot classification), ``generate_chexpert_class_prompts``,
 ``load_gloria`` for reference-format ``.ckpt`` files and for the port's own
-checkpoint directories (``training.checkpoints``).
+checkpoint directories (``training.checkpoints``), and the downstream
+models with the GLoRIA image encoder grafted in:
+``load_img_classification_model`` and ``load_img_segmentation_model``
+(``available_segmentation_models`` lists the registry's names).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device given and no card, the entry points raise.  They never fall back
@@ -41,6 +44,7 @@ _MODELS = {
     "gloria_resnet50": "./pretrained/chexpert_resnet50.ckpt",
     "gloria_resnet18": "./pretrained/chexpert_resnet18.ckpt",
 }
+_SEGMENTATION_MODELS = {"gloria_resnet50": "./pretrained/chexpert_resnet50.ckpt"}
 # the eval-path temperatures are fixed in the reference, whatever the config says
 EVAL_TEMP1 = 4.0
 EVAL_TEMP2 = 5.0
@@ -48,6 +52,10 @@ EVAL_TEMP2 = 5.0
 
 def available_models() -> list[str]:
     return list(_MODELS.keys())
+
+
+def available_segmentation_models() -> list[str]:
+    return list(_SEGMENTATION_MODELS.keys())
 
 
 class GloriaModel:
@@ -230,6 +238,47 @@ def load_gloria(name: str = "gloria_resnet50", device=None, cfg_override: Config
     state = {(k[len("gloria."):] if k.startswith("gloria.") else k): v
              for k, v in ckpt["state_dict"].items() if not k.endswith("num_batches_tracked")}
     return GloriaModel(cfg, state, tokenizer, device=device)
+
+
+def _task_model(gm: GloriaModel, task_cls, cfg: Config) -> torch.nn.Module:
+    """A task model with ``gm``'s image encoder grafted in, on ``gm``'s device."""
+    from .training.tasks import graft_pretrained
+
+    gloria_state = {k: v.detach() for k, v in gm.model.state_dict().items()}
+    model, patch = task_cls.build_model(cfg, gloria_state)
+    model.load_state_dict(graft_pretrained(model.state_dict(), patch), strict=True)
+    return model.to(gm.device)
+
+
+def load_img_classification_model(name: str = "gloria_resnet50", device=None, num_cls: int = 1,
+                                  freeze_encoder: bool = True) -> torch.nn.Module:
+    """A ``PretrainedImageClassifier`` (a linear head over the pooled
+    feature) with the GLoRIA image encoder of ``name`` (as
+    :func:`load_gloria` takes it) grafted in, on ``device``.  With
+    ``freeze_encoder`` the encoder's parameters have ``requires_grad``
+    off, the head's on (the JAX package returns the same split as optax
+    labels)."""
+    from .training.tasks import ClassificationTask
+
+    gm = load_gloria(name, device)
+    vision = gm.cfg.model.vision if gm.cfg.model and gm.cfg.model.vision else Config()
+    cfg = Config({"model": {"vision": {"model_name": vision.model_name or "resnet_50",
+                                       "num_targets": num_cls}}})
+    model = _task_model(gm, ClassificationTask, cfg)
+    if freeze_encoder:
+        model.img_encoder.requires_grad_(False)
+    return model
+
+
+def load_img_segmentation_model(name: str = "gloria_resnet50", device=None) -> torch.nn.Module:
+    """A ``ResnetUNet`` with the GLoRIA image backbone of ``name`` (as
+    :func:`load_gloria` takes it) grafted in, on ``device``."""
+    from .training.tasks import SegmentationTask
+
+    gm = load_gloria(name, device)
+    vision = gm.cfg.model.vision if gm.cfg.model and gm.cfg.model.vision else Config()
+    cfg = Config({"model": {"vision": {"model_name": vision.model_name or "resnet_50"}}})
+    return _task_model(gm, SegmentationTask, cfg)
 
 
 def _cfg_to_dict(obj):

@@ -3,10 +3,13 @@
 The port's counterpart of ``gloria_tpu.builder``.  The model comes from
 :func:`models.gloria_model.init_gloria` with an explicit seed; torch modules
 need no example batch to build, so :func:`init_gloria` takes one only to
-keep the JAX signature.  Not ported, and refused: the freeze flags
-(ROADMAP.md A5, refused by ``training.train.make_pretrain_steps``) and
-``train.loss_chunk`` (A1.8): the port's local loss has one route, the
-K1/K2 kernels on a card and their plain versions on the CPU.
+keep the JAX signature.  :func:`build_optimizer` applies the freeze flags
+when the model is given (``training.optim.freeze_wrap``).  The downstream
+tasks build their models in ``training.tasks``; like JAX, they dispatch one
+batch a step, so ``train.steps_per_dispatch`` above 1 raises there.  Not
+ported, and refused: ``train.loss_chunk`` (ROADMAP.md A1.8): the port's
+local loss has one route, the K1/K2 kernels on a card and their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from .configs import Config
 from .models.gloria_model import GLoRIA
 from .models.gloria_model import init_gloria as init_gloria_model
 from .training import optim
+from .training.checkpoints import restore_train_state
 from .training.train import TrainState, create_train_state, make_pretrain_steps
 
 
@@ -57,11 +61,18 @@ def build_gloria_model(cfg: Config, seed: int = 0) -> GLoRIA:
     return init_gloria_model(cfg, seed=seed)
 
 
-def build_optimizer(cfg: Config) -> optim.Optimizer:
-    """``train.optimizer`` with ``lightning.trainer.gradient_clip_val``'s clip."""
+def build_optimizer(cfg: Config, model: torch.nn.Module | None = None) -> optim.Optimizer:
+    """``train.optimizer`` with ``lightning.trainer.gradient_clip_val``'s clip;
+    given ``model``, masked by the freeze flags when they freeze any of its
+    parameters."""
     trainer = cfg.lightning.trainer if cfg.lightning and cfg.lightning.trainer else Config()
     clip = float(trainer.gradient_clip_val) if trainer.gradient_clip_val else None
-    return optim.make_optimizer(cfg, grad_clip=clip)
+    tx = optim.make_optimizer(cfg, grad_clip=clip)
+    if model is not None:
+        labels = optim.partition_trainable(model, optim.trainable_predicate(cfg))
+        if "frozen" in labels.values():
+            tx = optim.freeze_wrap(tx, labels)
+    return tx
 
 
 def build_scheduler(cfg: Config) -> optim.LRScheduler:
@@ -88,7 +99,44 @@ def init_gloria(cfg: Config, batch: dict | None = None, seed: int = 0,
         raise NotImplementedError("train.loss_chunk: the port's local loss has one route "
                                   "(queued in ROADMAP.md A1.8)")
     model = build_gloria_model(cfg, seed=seed)
-    tx = build_optimizer(cfg)
+    tx = build_optimizer(cfg, model)
     state: TrainState = create_train_state(model, tx, seed=seed, device=device)
     train_step, eval_step = make_pretrain_steps(model, tx)
     return model, state, train_step, eval_step
+
+
+def init_task(cfg: Config, pretrained: dict | None = None, seed: int = 0,
+              device: torch.device | str | None = None, resume_from: dict | None = None):
+    """The classification or segmentation phase (``cfg.phase``): returns
+    ``(task, state)`` with the task model on ``device`` (the card unless the
+    caller names another).
+
+    ``pretrained`` is a GLoRIA state dict whose image encoder is grafted in
+    (``training.tasks``); ``resume_from`` is a checkpoint payload of this
+    task, whose weights, optimizer state and step are restored instead.
+    ``model.vision.freeze_cnn`` masks the optimizer with the freeze flags,
+    as the JAX driver does.  Like JAX, the tasks take one batch a dispatch:
+    ``train.steps_per_dispatch`` above 1 raises ``ValueError``."""
+    from .training import tasks
+
+    phase = (cfg.phase or "").lower()
+    task_cls = {"classification": tasks.ClassificationTask,
+                "segmentation": tasks.SegmentationTask}[phase]
+    if steps_per_dispatch(cfg) > 1:
+        raise ValueError("--steps_per_dispatch is pretrain-only; the classification and "
+                         "segmentation tasks dispatch per batch")
+    if resume_from is not None:  # the model's shape comes from its own checkpoint
+        own = resume_from["model"]
+        pretrained = (own if phase == "classification"
+                      and any(k.startswith("img_encoder.") for k in own) else None)
+    model, patch = task_cls.build_model(cfg, pretrained, seed=seed)
+    if resume_from is None:
+        model.load_state_dict(tasks.graft_pretrained(model.state_dict(), patch), strict=True)
+    tx = build_optimizer(cfg)
+    if cfg.model.vision.freeze_cnn:
+        tx = optim.freeze_wrap(tx, optim.partition_trainable(model, optim.trainable_predicate(cfg)))
+    task = task_cls(model, tasks.build_loss(cfg), tx, accum_steps=accumulate_grad_batches(cfg))
+    state = task.init_state(seed=seed, device=device)
+    if resume_from is not None:
+        restore_train_state(state, resume_from, resume=True)
+    return task, state

@@ -1,8 +1,9 @@
 """Dataset paths, CSV columns and the zero-shot prompt grammar (the port's
 own copy of ``gloria_tpu.constants``).
 
-The CheXpert paths come from the environment (``GLORIA_DATA_ROOT``,
-``CHEXPERT_DATA_DIR``), read once at import, as in the JAX package.
+The dataset paths come from the environment (``GLORIA_DATA_ROOT``,
+``CHEXPERT_DATA_DIR``, ``SIIM_DATA_DIR``, ``RSNA_DATA_DIR``), read once at
+import, as in the JAX package.
 
 ``CHEXPERT_CLASS_PROMPTS`` is the zero-shot prompt grammar: per class, a
 severity x subtype x location product.  The strings match the reference
@@ -24,6 +25,42 @@ CHEXPERT_TEST_CSV = CHEXPERT_DATA_DIR / "valid.csv"
 CHEXPERT_VIEW_COL = "Frontal/Lateral"
 CHEXPERT_PATH_COL = "Path"
 CHEXPERT_REPORT_COL = "Report Impression"
+
+# the five competition tasks the classification phase predicts
+CHEXPERT_COMPETITION_TASKS = [
+    "Atelectasis",
+    "Cardiomegaly",
+    "Consolidation",
+    "Edema",
+    "Pleural Effusion",
+]
+
+# the U-ones / U-zeros policy of the CheXpert paper: an uncertain label (-1)
+# becomes this value (1 = uncertain counted as positive)
+CHEXPERT_UNCERTAIN_MAPPINGS = {
+    "Atelectasis": 1,
+    "Cardiomegaly": 0,
+    "Consolidation": 0,
+    "Edema": 1,
+    "Pleural Effusion": 1,
+}
+
+# SIIM pneumothorax segmentation
+PNEUMOTHORAX_DATA_DIR = Path(os.environ.get("SIIM_DATA_DIR", DATA_ROOT / "siim"))
+PNEUMOTHORAX_ORIGINAL_TRAIN_CSV = PNEUMOTHORAX_DATA_DIR / "train-rle.csv"
+PNEUMOTHORAX_TRAIN_CSV = PNEUMOTHORAX_DATA_DIR / "train.csv"
+PNEUMOTHORAX_VALID_CSV = PNEUMOTHORAX_DATA_DIR / "valid.csv"
+PNEUMOTHORAX_TEST_CSV = PNEUMOTHORAX_DATA_DIR / "test.csv"
+PNEUMOTHORAX_IMG_DIR = PNEUMOTHORAX_DATA_DIR / "dicom-images-train"
+PNEUMOTHORAX_IMG_SIZE = 1024
+
+# RSNA pneumonia classification
+PNEUMONIA_DATA_DIR = Path(os.environ.get("RSNA_DATA_DIR", DATA_ROOT / "rsna_pneumonia"))
+PNEUMONIA_ORIGINAL_TRAIN_CSV = PNEUMONIA_DATA_DIR / "stage_2_train_labels.csv"
+PNEUMONIA_TRAIN_CSV = PNEUMONIA_DATA_DIR / "train.csv"
+PNEUMONIA_VALID_CSV = PNEUMONIA_DATA_DIR / "val.csv"
+PNEUMONIA_TEST_CSV = PNEUMONIA_DATA_DIR / "test.csv"
+PNEUMONIA_IMG_DIR = PNEUMONIA_DATA_DIR / "stage_2_train_images"
 
 CHEXPERT_CLASS_PROMPTS = {
     "Atelectasis": {

@@ -1,16 +1,21 @@
-"""Data modules: cfg → per-split loaders, for the pretrain phase.
+"""Data modules: cfg → per-split loaders, for every phase.
 
-The port's own copy of ``gloria_tpu.data.data_module``: ``chexpert`` and the
-hermetic ``synthetic`` module build image-report datasets, a
-:class:`~.collate.GloriaCollate` per split (seeds 0, 1, 2) sharing one
-tokenizer, and a :class:`~.loader.PrefetchLoader` whose ``to_device``
-moves the arrays to the module's device with ``training.train.to_device``
-and passes the collate's host-only ``_`` keys through.
+The port's own copy of ``gloria_tpu.data.data_module``.  In the pretrain
+phase, ``chexpert`` and the hermetic ``synthetic`` module build image-report
+datasets, a :class:`~.collate.GloriaCollate` per split (seeds 0, 1, 2)
+sharing one tokenizer.  In the classification and segmentation phases,
+``chexpert``, ``pneumonia``, ``pneumothorax`` and ``synthetic`` build the
+image datasets of :mod:`.image_dataset` and a
+:class:`~.image_dataset.SupervisedCollate` per split, seeded 0, 1, 2 as
+well (the JAX package leaves its task collates unseeded, so its random
+crops differ from run to run).  The :class:`~.loader.PrefetchLoader`'s
+``to_device`` moves the arrays to the module's device with
+``training.train.to_device`` and passes the collate's host-only ``_`` keys
+through.
 
-Not ported yet, and refused: the classification and segmentation phases
-(ROADMAP.md A5) and the ``pneumonia``, ``pneumothorax`` (A5) and
-``imagenome`` (A6) modules.  The loader runs as one process
-(``process_index`` 0 of 1) until the multi-device slice (A7).
+Not ported yet, and refused: the ``imagenome`` module (ROADMAP.md A6).  The
+loader runs as one process (``process_index`` 0 of 1) until the
+multi-device slice (A7).
 """
 
 from __future__ import annotations
@@ -23,11 +28,18 @@ from ..configs import Config
 from ..training.train import to_device
 from ..utils.device import resolve_device
 from .collate import GloriaCollate
+from .image_dataset import (CheXpertImageDataset, PneumoniaImageDataset,
+                            PneumothoraxImageDataset, SupervisedCollate, SyntheticImageDataset)
 from .loader import PrefetchLoader
 from .pretraining_dataset import CheXpertPretrainingDataset, SyntheticPretrainingDataset
 from .tokenizer import WordPieceTokenizer, load_tokenizer
 
-_UNPORTED_MODULES = {"pneumonia": "A5", "pneumothorax": "A5", "imagenome": "A6"}
+_UNPORTED_MODULES = {"imagenome": "A6"}
+_SPLIT_SEEDS = {"train": 0, "valid": 1, "test": 2}
+
+
+def _phase(cfg: Config) -> str:
+    return (cfg.phase or "pretrain").lower()
 
 
 class DataModule:
@@ -41,13 +53,13 @@ class DataModule:
         self.batch_size = int(cfg.train.batch_size or 8) if cfg.train else 8
         self.num_workers = int(cfg.train.num_workers or 8) if cfg.train else 8
         self.tokenizer: WordPieceTokenizer | None = None
+        self._collates: dict = {}  # split → collate, set by the subclasses
 
-    # subclasses implement
-    def dataset(self, split: str):
+    def dataset(self, split: str):  # subclasses implement
         raise NotImplementedError
 
     def collate(self, split: str):
-        raise NotImplementedError
+        return self._collates[split]
 
     def to_device(self, batch: dict) -> dict:
         return to_device(batch, self.device)
@@ -69,16 +81,31 @@ class DataModule:
         return self.loader("test")
 
 
-class _PretrainModule(DataModule):
+def _task_collates(cfg: Config) -> dict:
+    seg = _phase(cfg) == "segmentation"
+    return {split: SupervisedCollate(cfg, split, segmentation=seg, seed=seed)
+            for split, seed in _SPLIT_SEEDS.items()}
+
+
+class _TaskModule(DataModule):
+    """The task phases' data: a :class:`SupervisedCollate` per split."""
+
     def __init__(self, cfg: Config, **kw):
-        if (cfg.phase or "pretrain").lower() != "pretrain":
-            raise NotImplementedError(
-                f"phase {cfg.phase!r}: only the pretrain phase's data is ported yet "
-                "(the classification and segmentation data are queued in ROADMAP.md A5)")
         super().__init__(cfg, **kw)
+        self._collates = _task_collates(cfg)
+
+
+class _PretrainModule(DataModule):
+    """Image-report pairs in the pretrain phase, images otherwise."""
+
+    def __init__(self, cfg: Config, **kw):
+        super().__init__(cfg, **kw)
+        if _phase(cfg) != "pretrain":
+            self._collates = _task_collates(cfg)
+            return
         self.tokenizer = self._make_tokenizer()
-        self._collates = {split: GloriaCollate(cfg, split, self.tokenizer, seed=i)
-                          for i, split in enumerate(("train", "valid", "test"))}
+        self._collates = {split: GloriaCollate(cfg, split, self.tokenizer, seed=seed)
+                          for split, seed in _SPLIT_SEEDS.items()}
 
     def _make_tokenizer(self) -> WordPieceTokenizer:
         text_cfg = (self.cfg.model.text if self.cfg.model else None) or Config()
@@ -94,28 +121,46 @@ class _PretrainModule(DataModule):
                     continue
             return load_tokenizer(corpus=corpus or ["no finding"])
 
-    def collate(self, split: str) -> GloriaCollate:
-        return self._collates[split]
-
 
 class CheXpertDataModule(_PretrainModule):
     def dataset(self, split: str):
-        return CheXpertPretrainingDataset(self.cfg, split)
+        if _phase(self.cfg) == "pretrain":
+            return CheXpertPretrainingDataset(self.cfg, split)
+        return CheXpertImageDataset(self.cfg, split)
+
+
+class PneumoniaDataModule(_TaskModule):
+    def dataset(self, split: str):
+        return PneumoniaImageDataset(self.cfg, split)
+
+
+class PneumothoraxDataModule(_TaskModule):
+    def dataset(self, split: str):
+        return PneumothoraxImageDataset(self.cfg, split)
 
 
 class SyntheticDataModule(_PretrainModule):
-    """Hermetic image-report pairs (:class:`SyntheticPretrainingDataset`),
-    ``data.synthetic_size`` items per split (64 by default)."""
+    """Hermetic data for every phase, ``data.synthetic_size`` items per split
+    (64 by default): image-report pairs (:class:`SyntheticPretrainingDataset`)
+    or images with ``model.vision.num_targets`` labels or a mask
+    (:class:`SyntheticImageDataset`)."""
 
     def dataset(self, split: str):
-        seeds = {"train": 0, "valid": 1, "test": 2}
         size = int(self.cfg.data.synthetic_size or 64) if self.cfg.data else 64
         imsize = int(self.cfg.data.image.imsize or 64)
-        return SyntheticPretrainingDataset(size=size, imsize=imsize, seed=seeds[split])
+        phase = _phase(self.cfg)
+        if phase == "pretrain":
+            return SyntheticPretrainingDataset(size=size, imsize=imsize, seed=_SPLIT_SEEDS[split])
+        vision = self.cfg.model.vision if self.cfg.model else None
+        return SyntheticImageDataset(
+            size=size, imsize=imsize, num_classes=int((vision.num_targets if vision else None) or 5),
+            segmentation=(phase == "segmentation"), seed=_SPLIT_SEEDS[split])
 
 
 DATA_MODULES: dict[str, Any] = {
     "chexpert": CheXpertDataModule,
+    "pneumonia": PneumoniaDataModule,
+    "pneumothorax": PneumothoraxDataModule,
     "synthetic": SyntheticDataModule,
 }
 

@@ -25,8 +25,6 @@ dict with ``gloria.`` stripped loads with ``strict=True``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
@@ -35,7 +33,7 @@ from ..data.transforms import norm_constants
 from ..ops import gloria_loss
 from ..ops.resize import resize_maps_nearest
 from .bert import BertConfig
-from .resnet import BasicBlock, Bottleneck
+from .resnet import init_weights_
 from .text_model import TextEncoder
 from .vision_model import ImageEncoder
 
@@ -227,26 +225,11 @@ def init_gloria(cfg: Config, seed: int = 0) -> GLoRIA:
     """A GLoRIA with random weights drawn from ``torch.Generator(seed)``.
 
     ``no_grad`` covers the init only: the returned model (in train mode, the
-    ``nn.Module`` default) trains as it is.  The init keeps activations finite and O(1) at full depth with eval-mode
-    BatchNorm (identity running stats): He-normal convolutions, and the last
-    BatchNorm of every residual branch scaled to 0.25 so the residual sums
-    grow slowly; BERT-style N(0, 0.02) for dense layers and embeddings."""
+    ``nn.Module`` default) trains as it is.  The weights come from
+    :func:`.resnet.init_weights_`, then the sink vector from N(0, 1)."""
     model = GLoRIA(cfg)
     g = torch.Generator().manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=g)
-        elif isinstance(m, (nn.Linear, nn.Embedding)):
-            m.weight.normal_(0.0, 0.02, generator=g)
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.MultiheadAttention):
-            m.in_proj_weight.normal_(0.0, 0.02, generator=g)
-            m.in_proj_bias.zero_()
-        elif isinstance(m, (BasicBlock, Bottleneck)):
-            last = m.bn3 if isinstance(m, Bottleneck) else m.bn2
-            last.weight.fill_(0.25)
+    init_weights_(model, g)
     if model.no_attn_vec is not None:
         model.no_attn_vec.normal_(0.0, 1.0, generator=g)
     return model

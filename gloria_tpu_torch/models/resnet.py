@@ -6,13 +6,15 @@ torchvision's module names (``layer1.0.conv1``, ``layer1.0.downsample.0``)
 so reference state dicts load as they are.  BatchNorm is the port's own
 (``norm.BatchNorm2d``): ``train()`` and ``eval()`` switch it between batch
 and running statistics.  One pass returns both the pooled
-layer4 feature and the layer3 local-feature map.  Inputs are NCHW; the
+layer4 feature and the layer3 local-feature map, or every stage's output
+for the U-Net (``return_features``).  Inputs are NCHW; the
 image encoder hands them over in ``channels_last`` memory.  DenseNet is not
 ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -94,13 +96,20 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        x = self.layer1(x)
-        x = self.layer2(x)
-        local = self.layer3(x)
-        pooled = self.layer4(local).mean(dim=(2, 3))  # AdaptiveAvgPool2d(1)
-        return pooled, local
+    def forward(self, x: torch.Tensor, return_features: bool = False):
+        """(pooled, layer3 map), or with ``return_features`` (pooled, the
+        dict of the U-Net's skips: ``input``, ``stem`` (after the ReLU,
+        before the maxpool), ``layer1``-``layer4``)."""
+        stem = torch.relu(self.bn1(self.conv1(x)))
+        layer1 = self.layer1(self.maxpool(stem))
+        layer2 = self.layer2(layer1)
+        layer3 = self.layer3(layer2)
+        layer4 = self.layer4(layer3)
+        pooled = layer4.mean(dim=(2, 3))  # AdaptiveAvgPool2d(1)
+        if return_features:
+            return pooled, {"input": x, "stem": stem, "layer1": layer1, "layer2": layer2,
+                            "layer3": layer3, "layer4": layer4}
+        return pooled, layer3
 
 
 # name → (constructor kwargs, global feature dim, layer3 feature dim)
@@ -116,6 +125,38 @@ BACKBONES: dict[str, tuple[dict, int, int]] = {
 
 def make_backbone(name: str) -> tuple[ResNet, int, int]:
     if name not in BACKBONES:
-        raise NotImplementedError(f"backbone {name!r} is not ported; choose from {sorted(BACKBONES)}")
+        raise NotImplementedError(f"backbone {name!r} is not ported (DenseNet: queued in "
+                                  f"ROADMAP.md A5.1); choose from {sorted(BACKBONES)}")
     spec, feature_dim, interm_dim = BACKBONES[name]
     return ResNet(**spec), feature_dim, interm_dim
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights in place, drawn from ``generator`` in module order;
+    they keep activations finite and O(1) at full depth with eval-mode
+    BatchNorm (identity running stats): He-normal convolutions (a 2×2
+    stride-2 transposed convolution's fan-in is its input channels), zero
+    conv biases, the last BatchNorm of every residual branch scaled to 0.25
+    so the residual sums grow slowly; BERT-style N(0, 0.02) for dense layers
+    and embeddings."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.ConvTranspose2d):
+            m.weight.normal_(0.0, math.sqrt(2.0 / m.in_channels), generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Embedding)):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.MultiheadAttention):
+            m.in_proj_weight.normal_(0.0, 0.02, generator=generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, (BasicBlock, Bottleneck)):
+            last = m.bn3 if isinstance(m, Bottleneck) else m.bn2
+            last.weight.fill_(0.25)
+    return model

@@ -5,6 +5,8 @@ The counterpart of the JAX package's ``run.py``, with the same flags:
     python -m gloria_tpu_torch.run -c configs/chexpert_pretrain_config.yaml --train
     python -m gloria_tpu_torch.run -c <cfg> --train --test --device cpu
     python -m gloria_tpu_torch.run -c <cfg> --train --resume --ckpt <step dir>
+    python -m gloria_tpu_torch.run -c configs/chexpert_classification_config.yaml \
+        --ckpt <pretrain step dir> --train --test
 
 It runs on the CUDA card unless ``--device`` names another (the port's
 counterpart of ``JAX_PLATFORMS=cpu``).  Each seed gets an output directory
@@ -17,6 +19,18 @@ also restores the optimizer state, the step and the trainer's state (epoch,
 scheduler, early stopping).  ``--fused_kernel`` is accepted: the port's
 local loss always runs the K1/K2 kernels on a card.  Precision 32 is the
 only one ported: on a card the driver turns TF32 off for cuDNN and cuBLAS.
+
+The ``classification`` and ``segmentation`` phases train a task model
+(``builder.init_task``): ``--ckpt`` names a pretrain checkpoint whose image
+encoder is grafted in (the whole ``img_encoder`` into the classifier, its
+backbone into the U-Net), ``model.vision.freeze_cnn`` freezes it, and the
+epoch metrics are ``val_auroc`` / ``val_auprc`` or ``val_dice`` (also on
+the test split, under the JAX driver's names).  With ``--resume``, ``--ckpt``
+is instead a checkpoint of the task itself, continued as in the pretrain
+phase (the JAX driver ignores ``--resume`` in the task phases).  The
+classification test results also go to ``<run dir>/results.csv``, as the
+reference writes them; the segmentation phase writes its first validation
+sample's images (``training.tasks.LogSegmentationSamples``).
 
 Options the port does not take yet raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them (:func:`refuse_unported`).  ``main``'s
@@ -38,6 +52,7 @@ import numpy as np
 
 from .configs import Config, dumps_json, load_config, save_config
 
+PHASES = ("pretrain", "classification", "segmentation")
 _DATA_ABLATIONS = ("randomize_reports", "randomize_objects_mode", "swap_left_right",
                    "swap_conditions", "generate_sent", "mask_mode", "mask_prob")
 
@@ -141,8 +156,8 @@ def refuse_unported(cfg: Config, args) -> None:
         raise NotImplementedError(f"{what} is not ported yet (queued in ROADMAP.md {item})")
 
     phase = (cfg.phase or "pretrain").lower()
-    if phase != "pretrain":
-        refuse(f"phase {cfg.phase!r} (the classification and segmentation tasks)", "A5")
+    if phase not in PHASES:
+        raise ValueError(f"unknown phase {cfg.phase!r}; choose from {PHASES}")
     if str(cfg.get_path("lightning.trainer.precision")) in ("16", "bf16"):
         refuse("lightning.trainer.precision 16 / bf16 (the bf16 compute policy; set 32)", "A1.2")
     for key in ("train.nvis", "lightning.evaluate_localization",
@@ -164,8 +179,6 @@ def refuse_unported(cfg: Config, args) -> None:
     for key in _DATA_ABLATIONS:
         if cfg.get_path(f"data.{key}"):
             refuse(f"data.{key} (the ImaGenome data ablations)", "A6")
-    if cfg.get_path("data.frac") not in (None, 1, 1.0):
-        refuse("--train_pct / data.frac (read only by the classification data)", "A5")
 
 
 def main(cfg: Config, args, device=None) -> dict:
@@ -178,6 +191,7 @@ def main(cfg: Config, args, device=None) -> dict:
     from .ops import local_sim
     from .training.checkpoints import (CheckpointManager, load_checkpoint, load_checkpoint_meta,
                                        restore_train_state)
+    from .training.tasks import LogSegmentationSamples
     from .training.trainer import ProfileTrace, Trainer
     from .utils.device import resolve_device
     from .utils.logging import MetricLogger
@@ -185,6 +199,7 @@ def main(cfg: Config, args, device=None) -> dict:
     t_main = time.perf_counter()
     timing: dict[str, float] = {}
     refuse_unported(cfg, args)
+    phase = (cfg.phase or "pretrain").lower()
     device = resolve_device(device if device is not None else getattr(args, "device", None))
     if device.type == "cuda":
         # precision 32 is f32: no TF32 in cuDNN's convolutions or cuBLAS's products
@@ -213,21 +228,32 @@ def main(cfg: Config, args, device=None) -> dict:
     timing["data_module"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    model, state, train_step, eval_step = builder.init_gloria(
-        cfg, seed=int(cfg.random_seed or 0), device=device)
-    if args.ckpt:
-        payload, _ = load_checkpoint(args.ckpt)
-        restore_train_state(state, payload, resume=bool(args.resume and "opt_state" in payload))
+    seed = int(cfg.random_seed or 0)
+    payload = load_checkpoint(args.ckpt)[0] if args.ckpt else None
+    resume = bool(args.resume and payload is not None and "opt_state" in payload)
+    callbacks, extractor, task = [], None, None
+    if phase == "pretrain":
+        model, state, train_step, eval_step = builder.init_gloria(cfg, seed=seed, device=device)
+        if payload is not None:
+            restore_train_state(state, payload, resume=resume)
+        convnet = model.img_encoder
+    else:
+        task, state = builder.init_task(
+            cfg, pretrained=payload["model"] if payload is not None and not resume else None,
+            seed=seed, device=device, resume_from=payload if resume else None)
+        convnet, train_step, eval_step = task.model, task.train_step, task.validation_step
+        extractor = task.metric_extractor
+        if phase == "segmentation":
+            callbacks.append(LogSegmentationSamples())
     if device.type == "cuda":
-        model.img_encoder.to(memory_format=torch.channels_last)
+        convnet.to(memory_format=torch.channels_last)
         torch.cuda.synchronize(device)
     timing["model_build"] = time.perf_counter() - t
 
-    callbacks = []
     if args.profile:
         callbacks.append(ProfileTrace(Path(cfg.output_dir) / "profile", steps=int(args.profile)))
     trainer = Trainer(cfg, train_step, eval_step, logger=logger, checkpoints=manager,
-                      callbacks=callbacks)
+                      callbacks=callbacks, metric_extractor=extractor)
     if args.resume and args.ckpt:
         # continue the same run: epoch numbering, data order, plateau and
         # early-stopping history
@@ -247,11 +273,14 @@ def main(cfg: Config, args, device=None) -> dict:
     if args.test:
         t = time.perf_counter()
         results["test"] = trainer.test(state, dm.test_dataloader())
+        if phase == "classification":
+            task.write_results(cfg, results["test"])
         timing["test"] = time.perf_counter() - t
     logger.close()
     timing["main"] = time.perf_counter() - t_main
     results["run"] = {
         "device": str(device) if device.type != "cuda" else torch.cuda.get_device_name(device),
+        "phase": phase,
         "seconds": timing,
         "global_step": trainer.global_step,
         "launches": {"local_sim_fwd": local_sim.launches - launches_before[0],

@@ -20,8 +20,9 @@ the host in the caller's thread; with ``async_save`` the file is written on
 one background thread, one save in flight at a time.
 
 Only rank 0 writes (``utils.logging.process_rank``).  Checkpoint surgery
-(``extract_subtree``, ``graft_subtree``) comes with the downstream tasks
-(ROADMAP.md A5).
+works on state-dict prefixes: :func:`extract_subtree` takes the entries
+under a prefix, :func:`graft_subtree` puts them under another, which is how
+a GLoRIA image encoder moves into a task model (``training.tasks``).
 """
 
 from __future__ import annotations
@@ -287,3 +288,25 @@ def load_checkpoint_meta(path: str | Path) -> dict:
 def is_checkpoint(path: str | Path) -> bool:
     """Whether ``path`` is a directory written by this module."""
     return (Path(path) / STATE_FILE).is_file()
+
+
+# ---------------------------------------------------------------------------
+# Cross-model surgery on state-dict prefixes
+# ---------------------------------------------------------------------------
+
+def extract_subtree(state_dict: dict, prefix: str) -> dict:
+    """The entries under ``prefix`` (ending in ``.``), without it: the JAX
+    package's ``extract_subtree(variables, path)`` (``img_encoder.`` for its
+    ``('params', 'img_encoder')`` and the BatchNorm statistics with it)."""
+    sub = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    if not sub:
+        raise KeyError(f"no entries under {prefix!r}")
+    return sub
+
+
+def graft_subtree(state_dict: dict, prefix: str, subtree: dict) -> dict:
+    """A copy of ``state_dict`` whose entries under ``prefix`` are replaced
+    by ``subtree``'s, put under ``prefix``."""
+    out = {k: v for k, v in state_dict.items() if not k.startswith(prefix)}
+    out.update({f"{prefix}{k}": v for k, v in subtree.items()})
+    return out

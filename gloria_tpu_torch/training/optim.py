@@ -19,14 +19,24 @@ skip-on-non-finite guard.  The update follows the optax chain step for step:
 The guard's decisions stay on the device (``torch.where``), so a step needs
 no device→host read.  The epoch-level LR schedulers (:class:`LRScheduler`)
 run on the host; the trainer pushes their rate into :class:`OptState` with
-:func:`set_learning_rate`.  The freeze flags (ROADMAP.md A5) and optax's
-flattened layout are not ported.
+:func:`set_learning_rate`.  optax's flattened layout is not ported.
+
+The freeze flags (``freeze_bert``, ``freeze_cnn``,
+``train_last_local_image_layer``, ``train_prompt``) are
+:func:`trainable_predicate` over parameter names; :func:`freeze_wrap`
+gives the optimizer a trainable mask, as ``optax.multi_transform`` with
+``set_to_zero`` does in JAX: the chain above (guard, clip, decay, moments)
+sees only the trainable parameters and their gradients, its global norm
+included, and a frozen parameter is never written.  Callers hand
+:meth:`Optimizer.init` and :meth:`Optimizer.update` the lists that
+:meth:`Optimizer.select` picks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -59,8 +69,21 @@ class Optimizer:
     grad_clip: float | None = None
     momentum: float = 0.0           # SGD only
     skip_nonfinite: bool = True
+    # freeze_wrap's mask over the model's parameters, in order; None: all train
+    trainable: tuple[bool, ...] | None = None
+
+    def select(self, tensors: list) -> list:
+        """The entries of ``tensors`` (one per parameter, in the model's
+        order) that belong to trainable parameters."""
+        if self.trainable is None:
+            return list(tensors)
+        if len(tensors) != len(self.trainable):
+            raise ValueError(f"{len(tensors)} tensors for a mask over {len(self.trainable)} "
+                             "parameters")
+        return [t for t, keep in zip(tensors, self.trainable) if keep]
 
     def init(self, params: list[torch.Tensor]) -> OptState:
+        """State over ``params``, the trainable ones (:meth:`select`)."""
         state = OptState(lr=self.lr)
         if self.name in ADAM_BETAS:
             state.mu = [torch.zeros_like(p) for p in params]
@@ -76,6 +99,7 @@ class Optimizer:
     def update(self, grads: list[torch.Tensor], state: OptState, params: list[torch.Tensor],
                norm: torch.Tensor) -> list[torch.Tensor]:
         """The updates to add to ``params``; ``state`` moves one step in place.
+        ``grads`` and ``params`` are the trainable ones (:meth:`select`),
         ``norm`` is ``global_norm(grads)``."""
         g = list(grads)
         ok = None
@@ -146,6 +170,53 @@ def set_learning_rate(state: OptState, lr: float) -> OptState:
 
 def get_learning_rate(state: OptState) -> float:
     return state.lr
+
+
+# ---------------------------------------------------------------------------
+# Freezing: the reference's freeze flags on parameter names
+# ---------------------------------------------------------------------------
+
+IMAGE_BACKBONE = "img_encoder.model."   # the JAX package's img_encoder/backbone
+TEXT_BERT = "text_encoder.model."       # its text_encoder/bert
+
+
+def trainable_predicate(cfg: Config) -> Callable[[str], bool]:
+    """The freeze flags as a predicate on the port's parameter names (JAX's
+    ``trainable_predicate`` on its paths).  ``train_last_local_image_layer``
+    or ``train_prompt`` trains only the image backbone's layer3 or BERT's
+    embeddings; otherwise ``freeze_bert`` and ``freeze_cnn`` freeze BERT or
+    the image backbone (``img_encoder.model.*``: a GLoRIA's, or a
+    ``PretrainedImageClassifier``'s; the U-Net's ``backbone.*`` is not
+    matched, as in JAX)."""
+    m = cfg.model or Config()
+    if m.train_last_local_image_layer or m.train_prompt:
+        def pred(name: str) -> bool:
+            if m.train_last_local_image_layer and f"{IMAGE_BACKBONE}layer3." in name:
+                return True
+            return bool(m.train_prompt and TEXT_BERT in name and "embeddings" in name)
+        return pred
+
+    freeze_bert = bool(m.text and m.text.freeze_bert)
+    freeze_cnn = bool(m.vision and m.vision.freeze_cnn)
+
+    def pred(name: str) -> bool:
+        if freeze_bert and name.startswith(TEXT_BERT):
+            return False
+        return not (freeze_cnn and name.startswith(IMAGE_BACKBONE))
+
+    return pred
+
+
+def partition_trainable(model: torch.nn.Module, trainable_fn: Callable[[str], bool]) -> dict:
+    """``{parameter name: "trainable" | "frozen"}`` in ``named_parameters``' order."""
+    return {name: "trainable" if trainable_fn(name) else "frozen"
+            for name, _ in model.named_parameters()}
+
+
+def freeze_wrap(optimizer: Optimizer, labels: dict) -> Optimizer:
+    """``optimizer`` with ``labels``' frozen parameters masked out."""
+    return dataclasses.replace(
+        optimizer, trainable=tuple(label == "trainable" for label in labels.values()))
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,14 @@ optimizer update, and the BatchNorm running statistics, which a step that
 the non-finite guard skips leaves as they were.  PyTorch runs eagerly, so
 there is nothing to compile: the steps are plain functions.
 
-Not ported yet, and refused by :func:`make_pretrain_steps`: gradient
-accumulation, several steps per dispatch, the freeze flags and training the
-image transformer; ``calc_loss`` refuses the flat-attention ablation
-losses.  A batch with ``segmentation_labels`` trains the
-attention-supervision term when the config weights it.
+The freeze flags come in through the optimizer's trainable mask
+(``optim.freeze_wrap``, which ``builder.build_optimizer`` applies): the
+update skips the frozen parameters, while ``grad_norm`` stays the norm of
+every gradient, as in JAX.  Not ported yet, and refused by
+:func:`make_pretrain_steps`: gradient accumulation, several steps per
+dispatch and training the image transformer; ``calc_loss`` refuses the
+flat-attention ablation losses.  A batch with ``segmentation_labels``
+trains the attention-supervision term when the config weights it.
 """
 
 from __future__ import annotations
@@ -37,19 +40,19 @@ _LONG_KEYS = ("caption_ids", "attention_mask", "token_type_ids", "cap_lens")
 
 @dataclasses.dataclass
 class TrainState:
-    model: GLoRIA          # parameters and BatchNorm running statistics
+    model: torch.nn.Module  # parameters and BatchNorm running statistics
     opt_state: OptState
     step: int
     seed: int              # with ``step``, seeds the dropout masks
 
 
-def create_train_state(model: GLoRIA, optimizer: Optimizer, seed: int = 0,
+def create_train_state(model: torch.nn.Module, optimizer: Optimizer, seed: int = 0,
                        device=None) -> TrainState:
     """Moves ``model`` to ``device`` (the card unless the caller names
-    another) and sets up the optimizer state over ``model.parameters()``."""
+    another) and sets up the optimizer state over its trainable parameters."""
     model.to(resolve_device(device))
-    return TrainState(model=model, opt_state=optimizer.init(list(model.parameters())),
-                      step=0, seed=int(seed))
+    params = optimizer.select(list(model.parameters()))
+    return TrainState(model=model, opt_state=optimizer.init(params), step=0, seed=int(seed))
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -57,10 +60,6 @@ def _refuse_unported(cfg: Config) -> None:
     trainer = cfg.lightning.trainer if cfg.lightning and cfg.lightning.trainer else Config()
     unported = {  # key: (set?, the ROADMAP.md item that ports it)
         "model.image_transformer": (m.image_transformer, "A1.7"),
-        "model.text.freeze_bert": (m.text and m.text.freeze_bert, "A5"),
-        "model.vision.freeze_cnn": (m.vision and m.vision.freeze_cnn, "A5"),
-        "model.train_last_local_image_layer": (m.train_last_local_image_layer, "A5"),
-        "model.train_prompt": (m.train_prompt, "A5"),
         "lightning.trainer.accumulate_grad_batches": (
             int(trainer.accumulate_grad_batches or 1) > 1, "A1.8"),
         "train.steps_per_dispatch": (
@@ -125,6 +124,7 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
     train step updates ``state`` in place and returns it."""
     _refuse_unported(model.cfg)
     params = list(model.parameters())
+    trainable = optimizer.select(params)
     bn_stats = [buf for m in model.modules() if isinstance(m, BatchNorm2d)
                 for buf in (m.running_mean, m.running_var)]
 
@@ -135,9 +135,11 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
         metrics, grads = loss_and_grads(
             model, b, generator=_dropout_generator(state.seed, state.step, device))
         metrics["grad_norm"] = global_norm(grads)
-        updates = optimizer.update(grads, state.opt_state, params, metrics["grad_norm"])
+        grads = optimizer.select(grads)
+        norm = metrics["grad_norm"] if optimizer.trainable is None else global_norm(grads)
+        updates = optimizer.update(grads, state.opt_state, trainable, norm)
         with torch.no_grad():
-            torch._foreach_add_(params, updates)
+            torch._foreach_add_(trainable, updates)
             if old_stats is not None:
                 # the guard zeroes the update of a non-finite step, but its
                 # forward has already moved the running statistics: undo that

@@ -7,6 +7,11 @@ stats, and flax multi-head attention's per-head kernels packed into
 ``in_proj_weight``.  The keys are the reference's torch keys without the
 ``gloria.`` prefix, so the result loads into
 :class:`gloria_tpu_torch.models.gloria_model.GLoRIA` with ``strict=True``.
+:func:`classifier_state_dict_from_jax` and :func:`unet_state_dict_from_jax`
+do the same for the downstream task models (``models/vision_model.py``,
+``models/unet.py``).  A flax ``ConvTranspose((2, 2), strides=(2, 2))``
+equals ``nn.ConvTranspose2d`` only with its kernel flipped in both spatial
+axes, then ``[kh, kw, in, out]`` → ``[in, out, kh, kw]``.
 :func:`batch_stats_from_state_dict` takes the BatchNorm running statistics
 the other way, so a model trained in the port hands its ``batch_stats``
 back in the JAX layout.
@@ -32,6 +37,14 @@ def _dense(w) -> np.ndarray:
     return _np(w).T
 
 
+def _conv_transpose(w) -> np.ndarray:
+    return np.ascontiguousarray(_np(w)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def _prefixed(prefix: str, d: dict) -> dict:
+    return {f"{prefix}{k}": v for k, v in d.items()}
+
+
 def resnet_state_dict(params: dict, stats: dict) -> dict:
     """JAX ``ResNet`` (params, batch_stats) → torchvision-keyed arrays."""
     out: dict = {}
@@ -43,7 +56,8 @@ def resnet_state_dict(params: dict, stats: dict) -> dict:
         out[f"{dst}.running_var"] = _np(s["var"])
 
     if "conv0" in params:
-        raise NotImplementedError("DenseNet backbones are not ported yet")
+        raise NotImplementedError("DenseNet backbones are not ported yet "
+                                  "(queued in ROADMAP.md A5.1)")
     out["conv1.weight"] = _conv(params["conv1"]["kernel"])
     bn(params["bn1"], stats["bn1"], "bn1")
     for name in sorted(k for k in params if k.startswith("layer")):
@@ -117,19 +131,81 @@ def _transformer_layer(params: dict, prefix: str) -> dict:
     }
 
 
+def _backbone_stats(stats: dict | None, *path: str) -> dict:
+    for key in path:
+        stats = (stats or {}).get(key)
+    if not stats:
+        raise ValueError("variables carry no batch_stats for the image backbone; BN running "
+                         "stats are part of the model")
+    return stats
+
+
+def _image_encoder_state_dict(params: dict, stats: dict | None) -> dict:
+    """JAX ``ImageEncoder`` (``params["img_encoder"]``) → ``img_encoder.*``
+    keys; the embedders when the tree has them."""
+    enc = params["img_encoder"]
+    out = _prefixed("img_encoder.model.", resnet_state_dict(
+        enc["backbone"], _backbone_stats(stats, "img_encoder", "backbone")))
+    if "global_embedder" in enc:
+        out["img_encoder.global_embedder.weight"] = _dense(enc["global_embedder"]["kernel"])
+        out["img_encoder.global_embedder.bias"] = _np(enc["global_embedder"]["bias"])
+        out["img_encoder.local_embedder.weight"] = _conv(enc["local_embedder"]["kernel"])
+    return out
+
+
+def _to_torch(d: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}  # owned, writable copies
+
+
+def classifier_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``ImageClassifier`` (``backbone``, ``classifier``) or
+    ``PretrainedImageClassifier`` (``img_encoder``, ``classifier``)
+    variables → the port's state dict."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    if "img_encoder" in params:
+        out = _image_encoder_state_dict(params, stats)
+    else:
+        out = _prefixed("backbone.", resnet_state_dict(params["backbone"],
+                                                       _backbone_stats(stats, "backbone")))
+    out["classifier.weight"] = _dense(params["classifier"]["kernel"])
+    out["classifier.bias"] = _np(params["classifier"]["bias"])
+    return _to_torch(out)
+
+
+def unet_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``ResnetUNet`` variables → the port's state dict, transposed
+    convolutions flipped (module docstring)."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    out = _prefixed("backbone.", resnet_state_dict(params["backbone"],
+                                                   _backbone_stats(stats, "backbone")))
+
+    def conv_block(p: dict, s: dict, dst: str):
+        out[f"{dst}.conv.weight"] = _conv(p["conv"]["kernel"])
+        out[f"{dst}.conv.bias"] = _np(p["conv"]["bias"])
+        out[f"{dst}.bn.weight"] = _np(p["bn"]["scale"])
+        out[f"{dst}.bn.bias"] = _np(p["bn"]["bias"])
+        out[f"{dst}.bn.running_mean"] = _np(s["bn"]["mean"])
+        out[f"{dst}.bn.running_var"] = _np(s["bn"]["var"])
+
+    for name in ("bridge_1", "bridge_2"):
+        conv_block(params[name], stats[name], name)
+    for i in range(1, 6):
+        name = f"up{i}"
+        p, s = params[name], stats[name]
+        out[f"{name}.upsample.weight"] = _conv_transpose(p["upsample"]["kernel"])
+        out[f"{name}.upsample.bias"] = _np(p["upsample"]["bias"])
+        conv_block(p["conv_block_1"], s["conv_block_1"], f"{name}.conv_block_1")
+        conv_block(p["conv_block_2"], s["conv_block_2"], f"{name}.conv_block_2")
+    out["out.weight"] = _conv(params["out"]["kernel"])
+    out["out.bias"] = _np(params["out"]["bias"])
+    return _to_torch(out)
+
+
 def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     """JAX ``{"params": ..., "batch_stats": ...}`` as nested numpy dicts →
     the port's state dict (reference keys, no ``gloria.`` prefix)."""
     params = variables["params"]
-    stats = (variables.get("batch_stats") or {}).get("img_encoder", {}).get("backbone", {})
-    if not stats:
-        raise ValueError("variables carry no batch_stats for the image backbone; BN running "
-                         "stats are part of the model")
-    out = {f"img_encoder.model.{k}": v
-           for k, v in resnet_state_dict(params["img_encoder"]["backbone"], stats).items()}
-    out["img_encoder.global_embedder.weight"] = _dense(params["img_encoder"]["global_embedder"]["kernel"])
-    out["img_encoder.global_embedder.bias"] = _np(params["img_encoder"]["global_embedder"]["bias"])
-    out["img_encoder.local_embedder.weight"] = _conv(params["img_encoder"]["local_embedder"]["kernel"])
+    out = _image_encoder_state_dict(params, variables.get("batch_stats"))
     for k, v in bert_state_dict(params["text_encoder"]["bert"]).items():
         out[f"text_encoder.model.{k}"] = v
     if "position_embeddings" in params:
@@ -141,7 +217,7 @@ def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
         i += 1
     if "no_attn_vec" in params:
         out["no_attn_vec"] = _np(params["no_attn_vec"])
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # owned, writable copies
+    return _to_torch(out)
 
 
 def batch_stats_from_state_dict(state_dict: dict) -> dict:

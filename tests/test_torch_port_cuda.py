@@ -487,3 +487,62 @@ def test_driver_trains_and_serves_on_the_card(card, tmp_path):
         np.testing.assert_allclose(sims["cuda"], sims["cpu"], rtol=0, atol=KERNEL_TOL)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+@pytest.mark.cuda
+def test_frozen_classification_step_card_matches_cpu(card):
+    """One classification task step (the pretrained classifier, ResNet-18 at
+    64² upsampled to 299², freeze_cnn, Adam, BCE) on the card (cuDNN, TF32
+    off) and on the CPU from the same weights: loss at 1e-4 relative, every
+    trainable gradient at 1e-3 relative L2, the frozen backbone bit-equal to
+    its start on the card, the BatchNorm statistics at 1e-4."""
+    import copy
+
+    from gloria_tpu_torch.configs import Config
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.training import optim, tasks
+
+    cfg = Config({"model": {"vision": {"model_name": "resnet_18", "num_targets": 3,
+                                       "freeze_cnn": True}},
+                  "train": {"loss_fn": {"type": "BCE"},
+                            "optimizer": {"name": "Adam", "weight_decay": 1e-6}},
+                  "lightning": {"trainer": {"lr": 1e-3}}})
+    gloria = init_gloria(Config({**DRIVER_CFG, "model": {**DRIVER_CFG["model"], "vision": {
+        "model_name": "resnet_18"}}}), seed=1).state_dict()
+    model, patch = tasks.ClassificationTask.build_model(cfg, gloria, seed=2)
+    model.load_state_dict(tasks.graft_pretrained(model.state_dict(), patch))
+    rng = np.random.RandomState(3)
+    batch = {"imgs": torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32)),
+             "labels": torch.from_numpy((rng.rand(2, 3) > 0.5).astype(np.float32))}
+
+    def task_on(device):
+        m = copy.deepcopy(model)
+        tx = optim.make_optimizer(cfg, grad_clip=0.25)
+        tx = optim.freeze_wrap(tx, optim.partition_trainable(m, optim.trainable_predicate(cfg)))
+        task = tasks.ClassificationTask(m, tasks.build_loss(cfg), tx)
+        return task, task.init_state(device=device)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gtask, gstate = task_on(card)
+        start = {k: v.clone() for k, v in gtask.model.state_dict().items()}
+        gloss, _, ggrads = gtask.loss_and_grads({k: v.to(card) for k, v in batch.items()})
+        gstate, _ = gtask.train_step(gstate, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    ctask, cstate = task_on("cpu")
+    closs, _, cgrads = ctask.loss_and_grads(batch)
+    ctask.train_step(cstate, batch)
+    assert abs(float(gloss) - float(closs)) <= 1e-4 * abs(float(closs))
+    for g, c in zip(ggrads, cgrads):
+        g, c = g.cpu().double(), c.double()
+        assert float((g - c).norm()) <= 1e-3 * max(float(c.norm()), 1e-30)
+    cpu_sd = ctask.model.state_dict()
+    for name, p in gtask.model.named_parameters():
+        if name.startswith("img_encoder.model."):
+            assert torch.equal(p.detach(), start[name]), name
+    for name, buf in gtask.model.named_buffers():
+        np.testing.assert_allclose(buf.cpu().numpy(), cpu_sd[name].numpy(), rtol=0, atol=1e-4,
+                                   err_msg=name)

@@ -579,17 +579,35 @@ def test_data_module_batches_match_jax(monkeypatch, tmp_path, dataset):
 
 
 def test_data_module_refusals(monkeypatch):
-    for name, item in (("pneumonia", "A5"), ("pneumothorax", "A5"), ("imagenome", "A6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            tdm.build_data_module(TConfig(_module_cfg(name)), device="cpu")
-    for phase in ("classification", "segmentation"):
-        cfg = TConfig(_module_cfg())
-        cfg.phase = phase
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            tdm.build_data_module(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        tdm.build_data_module(TConfig(_module_cfg("imagenome")), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdm.build_data_module(TConfig(_module_cfg()))
+
+
+@pytest.mark.parametrize("name,phase", [("pneumonia", "classification"),
+                                        ("pneumothorax", "segmentation"),
+                                        ("synthetic", "classification"),
+                                        ("synthetic", "segmentation")])
+def test_data_module_task_phases(name, phase):
+    """The modules and phases of the downstream tasks build: image datasets
+    behind a SupervisedCollate per split, no tokenizer (the datasets' files
+    are read only when a split is asked for; their parity with JAX is in
+    tests/test_torch_port_task_data.py)."""
+    from gloria_tpu_torch.data.image_dataset import SupervisedCollate
+
+    cfg = TConfig(_module_cfg(name))
+    cfg.phase = phase
+    dm = tdm.build_data_module(cfg, device="cpu")
+    assert dm.tokenizer is None
+    for split in ("train", "valid", "test"):
+        collate = dm.collate(split)
+        assert isinstance(collate, SupervisedCollate) and collate.split == split
+        assert collate.segmentation == (phase == "segmentation")
+    if name == "synthetic":
+        batch = next(iter(dm.val_dataloader()))
+        assert batch["imgs"].dtype == torch.float32 and batch["imgs"].shape[0] == dm.batch_size
 
 
 def test_importing_the_port_builds_nothing(tmp_path):

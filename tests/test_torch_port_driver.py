@@ -391,8 +391,6 @@ REFUSALS = [  # (config path → value, CLI flags, ROADMAP.md item)
     ({"train.nvis": 8}, ["--profile", "2"], "A6"),
     ({"lightning.evaluate_localization": {"eval_attn_overlay_mode": "upsample"}}, [], "A6"),
     ({"lightning.weight_instances_by_localization": {"temp": 0.2}}, [], "A6"),
-    ({"phase": "classification"}, [], "A5"),
-    ({"phase": "segmentation"}, [], "A5"),
     ({}, ["--fsdp", "2"], "A7"),
     ({}, ["--tp", "2"], "A7"),
     ({}, ["--multihost"], "A7"),
@@ -403,7 +401,6 @@ REFUSALS = [  # (config path → value, CLI flags, ROADMAP.md item)
     ({}, ["--swap_left_right"], "A6"),
     ({}, ["--mask_mode", "word"], "A6"),
     ({}, ["--generate_sent"], "A6"),
-    ({}, ["--train_pct", "0.5"], "A5"),
     ({}, ["--attention_entropy_loss_weight", "1.0"], "A1.6"),
 ]
 
@@ -420,6 +417,31 @@ def test_driver_refuses_unported_options(tmp_path, overrides, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         run.main(cfg, args, device="cpu")
     assert not list(tmp_path.iterdir())  # refused before anything was written
+
+
+TASK_OPTIONS = [  # the options the downstream-task slice ported: (config path → value, flags)
+    ({"phase": "classification"}, []),
+    ({"phase": "segmentation"}, []),
+    ({}, ["--train_pct", "0.5"]),
+]
+
+
+@pytest.mark.parametrize("overrides,flags", TASK_OPTIONS,
+                         ids=[f"{'+'.join(list(o) + f)}" for o, f in TASK_OPTIONS])
+def test_driver_accepts_task_options(overrides, flags):
+    """The task phases and ``--train_pct`` pass the refusals; an unknown
+    phase is a ValueError, not an unported option."""
+    cfg = Config(json.loads(json.dumps(PARITY_CFG)))
+    for path, value in overrides.items():
+        cfg.set_path(path, value)
+    args = run.get_parser().parse_args(["-c", "unused.yaml", "--train", *flags])
+    run.apply_overrides(cfg, args)
+    run.refuse_unported(cfg, args)  # no error
+    if flags:
+        assert cfg.data.frac == 0.5
+    cfg.phase = "detection"
+    with pytest.raises(ValueError, match="unknown phase"):
+        run.refuse_unported(cfg, args)
 
 
 def test_driver_accepts_fused_kernel(tmp_path):

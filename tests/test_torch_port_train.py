@@ -289,12 +289,10 @@ def test_unported_training_options_raise():
     cfg = _loss_cfg(sink=False, no_attn=False)
     model = TGLoRIA(TConfig(cfg))
     opt = optim.make_optimizer(TConfig(cfg))
-    for key, value in (("image_transformer", {"num_layers": 1, "num_heads": 2}),
-                       ("train_prompt", True)):
-        bad = TConfig(cfg)
-        bad.model[key] = value
-        with pytest.raises(NotImplementedError, match=key):
-            train.make_pretrain_steps(TGLoRIA(bad), opt)
+    bad = TConfig(cfg)
+    bad.model["image_transformer"] = {"num_layers": 1, "num_heads": 2}
+    with pytest.raises(NotImplementedError, match="image_transformer"):
+        train.make_pretrain_steps(TGLoRIA(bad), opt)
     emb = [torch.zeros(2, 4, 16), torch.zeros(2, 16), torch.zeros(2, 3, 16), torch.zeros(2, 16)]
     caps = torch.tensor([2, 3])
     model.cfg.model.gloria.attention_entropy_loss_weight = 1.0
@@ -311,6 +309,46 @@ OPTIMIZERS = {
     "sgd-momentum": ({"name": "SGD", "weight_decay": 1e-3, "momentum": 0.9}, 1.0),
     "sgd": ({"name": "SGD"}, 0.5),
 }
+
+
+FREEZE_FLAGS = [{"train_prompt": True}, {"train_last_local_image_layer": True},
+                {"text.freeze_bert": True, "vision.freeze_cnn": True}]
+
+
+@pytest.mark.parametrize("flags", FREEZE_FLAGS, ids=["+".join(f) for f in FREEZE_FLAGS])
+def test_freeze_flags_mask_the_pretrain_update(flags):
+    """The freeze flags in the pretrain step (``builder.build_optimizer``
+    masks the optimizer, as JAX's ``freeze_wrap``): after one Adam step every
+    frozen parameter is bit-equal to its start, the trainable ones the
+    predicate names moved, the optimizer's moments cover only those, and
+    ``grad_norm`` is still the norm of every gradient (within 1e-6
+    relative), as JAX reports it.  The predicate itself is held against
+    JAX's in tests/test_torch_port_tasks.py."""
+    import copy
+
+    from gloria_tpu_torch import builder
+
+    cfg = TConfig(tiny_cfg().to_dict())
+    cfg.set_path("train.optimizer.name", "Adam")
+    for key, value in flags.items():
+        cfg.set_path(f"model.{key}", value)
+    model, state, step, _ = builder.init_gloria(cfg, seed=0, device="cpu")
+    labels = optim.partition_trainable(model, optim.trainable_predicate(cfg))
+    trainable = [n for n, label in labels.items() if label == "trainable"]
+    assert 0 < len(trainable) < len(labels)
+    assert len(state.opt_state.mu) == len(trainable)
+    batch = tiny_batch(seed=0)
+    _, grads = train.loss_and_grads(copy.deepcopy(model), train.to_device(batch, "cpu"))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state, metrics = step(state, batch)
+    assert float(metrics["grad_norm"]) == pytest.approx(float(optim.global_norm(grads)), rel=1e-6)
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])}
+    assert moved and moved <= set(trainable)
+    if "train_prompt" in flags:
+        assert {n for n in moved if "embeddings" in n}
+    if "vision.freeze_cnn" in flags:
+        assert not {n for n in moved if n.startswith("img_encoder.model.")}
+        assert {n for n in moved if n.startswith("img_encoder.global_embedder")}
 
 
 @pytest.mark.parametrize("name", sorted(OPTIMIZERS))
