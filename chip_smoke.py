@@ -119,8 +119,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``val_auroc`` / ``val_dice``, the frozen encoder's parameters equal to
    the checkpoint's after training, the checkpoint's size on disk as
    reckoned, no kernel launch reported.
-12. one ``{"kernels": [...]}`` line (``launches_by_path`` with a ``tasks``
-   entry for every kernel), then the ``{"ok": true, ...}`` line.
+12. grounding — the ImaGenome grounding path at full width from phase 10's
+   best checkpoint, on a synthetic MIMIC-CXR / ImaGenome mirror written in
+   a temporary directory in the JAX package's layout (3 × 10 images of 512²
+   uint8 in the image cache, 10 silver objects and 6 sentences of 6-30
+   words each, many naming left or right; the split tables, the test split
+   the gold set with its gold table):
+   ``configs/imagenome_attn_finetune_config.yaml`` read by the port's
+   config reader with the overrides printed (``precision: 32``, ``bert_type: null``, the mirror's two
+   directories, ``max_epochs: 1``).  In this process: the imagenome data
+   module's first train batch of 30 through the train step with
+   ``return_attn`` (finite, ``attn_seg_loss`` > 0), K1 and K2 at the inputs
+   it gave them, as in phase 6; one K1 and one K2 launch a step with and
+   without ``return_attn``; both steps' times (CUDA events, median of 5
+   after a warm-up, twice each); ``EvaluateLocalization.evaluate_batch`` on
+   that batch (host clock, rows only and with the curves and artifacts);
+   ``train.attention_outputs`` alone (what ``return_attn`` adds); one B=8
+   batch through the step on the card and on the CPU (dropout 0, seed 0's
+   weights, whose attention is not uniform; phase 10's saturate the word
+   softmax, so every word but one attends evenly): losses, ``_attn``, ``_local_sims``, ``_global_sims``
+   and every localization metric within GROUNDING_* tolerances.  Then
+   ``python -m gloria_tpu_torch.run --limit_batches 2``: the finetune
+   config ``--train --test --ckpt <phase 10's best>`` (one epoch, every
+   train step's loss finite and ``attn_seg_loss`` > 0), and
+   ``configs/imagenome_pretrain_val_config.yaml --test --ckpt <its best>``,
+   plainly and with ``--swap_left_right``:
+   ``localization/<split>/sentences.csv`` for train, val and test (test only in the val runs) with
+   its rows, its five artifact folders, AUROC finite exactly on the rows
+   whose label has a box; the swapped run's sentences differ; the plain
+   val run reproduces the finetune run's test rows; the K1 and K2 launches
+   inside each run (K1 a train and an eval step, K2 a train step); each
+   run's wall time and split; the phase's seconds.
+13. one ``{"kernels": [...]}`` line (``launches_by_path`` with ``tasks``
+   and ``grounding`` entries for every kernel, K1 and K2 also with their
+   ``grounding_*`` numbers), then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -206,6 +238,39 @@ TASK_STEPS = 5        # timed steps at the config's batch, after one warm-up
 # 1e-4 of the whole gradient's.
 TASK_LOSS_RTOL = {"classification": 1e-4, "segmentation": 1e-3}
 TASK_GRAD_L2 = {"classification": 1e-3, "segmentation": 5e-2}
+# phase 12: the ImaGenome grounding configs on a synthetic mirror written here
+GROUNDING_CONFIGS = {"finetune": "configs/imagenome_attn_finetune_config.yaml",
+                     "val": "configs/imagenome_pretrain_val_config.yaml"}
+GROUNDING_DICOMS = 10    # images a split, each with GROUNDING_SENTENCES sentences:
+GROUNDING_SENTENCES = 6  # 60 a split, two batches of the configs' 30
+GROUNDING_CHECK_BATCH = 8
+GROUNDING_BBOXES = (  # Chest ImaGenome's anatomical locations
+    "right lung", "right upper lung zone", "right mid lung zone", "right lower lung zone",
+    "right hilar structures", "right apical zone", "right costophrenic angle",
+    "right hemidiaphragm", "left lung", "left upper lung zone", "left mid lung zone",
+    "left lower lung zone", "left hilar structures", "left apical zone",
+    "left costophrenic angle", "left hemidiaphragm", "cardiac silhouette", "mediastinum",
+    "trachea", "aortic arch")
+GROUNDING_CONDITIONS = ("lung opacity", "pleural effusion", "atelectasis", "pneumothorax",
+                        "consolidation", "pulmonary edema/hazy opacity", "vascular congestion",
+                        "enlarged cardiac silhouette", "pneumonia", "lung lesion")
+GROUNDING_WORDS = ("mild", "moderate", "small", "new", "stable", "unchanged", "subtle", "patchy",
+                   "increased", "decreased", "likely", "compared", "to", "the", "prior", "study",
+                   "again", "seen", "with", "minimal", "interval", "change", "since", "yesterday")
+# card vs CPU on one grounding train step (B=8, dropout 0, the same weights):
+# the attention is a softmax of train-mode features that differ by ~1e-6
+# relative (phase 8); the similarities are log-values of O(1-20).  The
+# localization metrics take the two attentions through the same overlay:
+# AUROC and AP move with the ranks of near-equal pixels, and the top-k
+# family by 1/k (k = 2508 at 5% of 224²) for each pixel that crosses its
+# threshold.
+# Measured (H100, 700 W): _attn 3.98e-5, _local_sims 3.31e-6, AUROC
+# 3.72e-5, the top-k family 1.30e-4.
+GROUNDING_ATTN_TOL = 1e-4
+GROUNDING_SIMS_TOL = 1e-3
+GROUNDING_METRIC_TOL = {"auroc": 1e-3, "avg_precision": 1e-3, "attn_entropy": 1e-4,
+                        "no_attn_weight": 1e-4}
+GROUNDING_TOPK_TOL = 1e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -404,6 +469,56 @@ def k1_numbers(words, regions, mask, kw: dict, where: str, card: str, iters: int
         + f"; products {products:.4f}, elementwise {passes_ms - products:.4f}, all passes "
         f"{passes_ms:.4f}, wrapper (packing, the read of N, launch gaps) {out['wrapper_ms']:.4f} "
         f"[{card}]")
+    return out
+
+
+def k2_numbers(words, regions, mask, g, kw: dict, where: str, card: str) -> dict:
+    """K2 at one path's inputs, as :func:`k1_numbers`: error against the
+    plain version (and error / tolerance), two calls bitwise equal, time
+    (CUDA events), the plain version's time, both bounds, the extra memory
+    of one call and the device time per pass (torch.profiler)."""
+    import torch
+
+    from gloria_tpu_torch.ops import local_sim
+
+    def call():
+        return local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
+
+    dw, dr = call()
+    pw, pr = local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw)
+    (ew, tw), (er, tr) = grad_err(dw, pw), grad_err(dr, pr)
+    check(ew <= tw and er <= tr, f"local_sim_bwd vs plain at the {where} inputs")
+    out = {"err": max(ew, er), "ratio": max(ew / tw, er / tr)}
+    again = call()
+    check(torch.equal(dw, again[0]) and torch.equal(dr, again[1]),
+          f"local_sim_bwd gives the same bits twice at the {where} inputs")
+    del dw, dr, pw, pr, again
+    out["ms"] = cuda_ms(call, 5)
+    out["plain_ms"] = cuda_ms(
+        lambda: local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw), 2)
+    out["bound_f32_ms"], _ = local_sim_bwd_bound(words, regions, mask, g)
+    out["bound_ms"], out["bound_by"] = local_sim_bwd_bound_3xtf32(words, regions, mask, g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    out["extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out["passes"] = passes = device_ms(call, K2_PASSES)
+    log(f"[kernels] local_sim_bwd at the {where} inputs: {int(mask.sum())} valid words x "
+        f"{regions.shape[0]} images; dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions "
+        f"max_abs_err={er:.3e} (tol {tr:.3e}), bitwise equal over two calls; kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms at the 3xTF32 rate ({out['bound_by']}), "
+        f"{out['bound_f32_ms']:.4f} ms at the f32 CUDA-core rate; outputs, workspace and "
+        f"packing {out['extra_gb']:.3f} GB [{card}]")
+    products = sum(v or 0.0 for k, v in passes.items() if k.startswith("k2p_"))
+    passes_ms = sum(v or 0.0 for v in passes.values())
+    log(f"[kernels] local_sim_bwd per pass at the {where} inputs (torch.profiler device time, "
+        f"ms): " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not recorded"
+                             for k, v in passes.items())
+        + f"; products {products:.4f}, elementwise {passes_ms - products:.4f}, all passes "
+        f"{passes_ms:.4f} [{card}]")
     return out
 
 
@@ -619,48 +734,9 @@ def phase_train(card: str) -> dict:
     check(seen["bwd_packed"], "the backward reads the forward's packed words: one packing a step")
     out = {"step_ms": step_ms, "launches": launches, "peak_gb": peak_gb}
     words, regions, mask, kw = seen["fwd"]
-    valid = int(mask.sum())
     out["k1"] = k1_numbers(words, regions, mask, kw, "train step's", card, 5, 2)
-    words, regions, mask, g, kw = seen["bwd"]
-    dw, dr = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
-    pw, pr = local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw)
-    (ew, tw), (er, tr) = grad_err(dw, pw), grad_err(dr, pr)
-    check(ew <= tw and er <= tr, "local_sim_bwd vs plain at the train step's inputs")
-    out["k2_err"], out["k2_ratio"] = max(ew, er), max(ew / tw, er / tr)
-    del dw, dr, pw, pr
-    out["k2_ms"] = cuda_ms(lambda: local_sim.local_similarities_bwd(words, regions, mask, g, **kw),
-                           5)
-    out["k2_plain_ms"] = cuda_ms(
-        lambda: local_sim.local_similarities_bwd_plain(words, regions, mask, g, **kw), 2)
-    out["k2_bound_f32_ms"], _ = local_sim_bwd_bound(words, regions, mask, g)
-    out["k2_bound_ms"], out["k2_bound_by"] = local_sim_bwd_bound_3xtf32(words, regions, mask, g)
-    first = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
-    again = local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
-    check(all(torch.equal(a, b) for a, b in zip(first, again)),
-          "local_sim_bwd gives the same bits twice")
-    del first, again
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    local_sim.local_similarities_bwd(words, regions, mask, g, **kw)
-    torch.cuda.synchronize()
-    out["k2_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    passes = device_ms(lambda: local_sim.local_similarities_bwd(words, regions, mask, g, **kw),
-                       K2_PASSES)
-    out["k2_passes"] = passes
-    log(f"[kernels] local_sim_bwd at the train step's inputs: {valid} valid words x "
-        f"{regions.shape[0]} images; dwords max_abs_err={ew:.3e} (tol {tw:.3e}), dregions "
-        f"max_abs_err={er:.3e} (tol {tr:.3e}), bitwise equal over two calls; kernel "
-        f"{out['k2_ms']:.4f} ms, plain {out['k2_plain_ms']:.4f} ms, bound "
-        f"{out['k2_bound_ms']:.4f} ms at the 3xTF32 rate ({out['k2_bound_by']}), "
-        f"{out['k2_bound_f32_ms']:.4f} ms at the f32 CUDA-core rate; outputs, workspace and "
-        f"packing {out['k2_extra_gb']:.3f} GB [{card}]")
-    products = sum(v or 0.0 for k, v in passes.items() if k.startswith("k2p_"))
-    passes_ms = sum(v or 0.0 for v in passes.values())
-    log("[kernels] local_sim_bwd per pass (torch.profiler device time, ms): " + ", ".join(
-        f"{k} {v:.4f}" if v is not None else f"{k} not recorded" for k, v in passes.items())
-        + f"; products {products:.4f}, elementwise {passes_ms - products:.4f}, all passes "
-        f"{passes_ms:.4f} [{card}]")
+    k2 = k2_numbers(*seen["bwd"], "train step's", card)
+    out.update({f"k2_{k}": v for k, v in k2.items()})
     del seen
 
     # where a step's time goes: each part timed on its own, CUDA events
@@ -1262,28 +1338,30 @@ def run_driver(cfg_path: Path, out: Path, *flags: str) -> dict:
     lines = proc.stdout.splitlines()
     report = json.loads(next(ln for ln in lines if ln.startswith("[run] "))[len("[run] "):])
     (run_dir,) = [p for p in out.iterdir() if p.is_dir()]
-    with open(run_dir / "metrics_epoch.csv", newline="") as fh:
-        epochs = list(csv.DictReader(fh))
+    epochs = []
+    if (run_dir / "metrics_epoch.csv").exists():  # a --test run trains no epoch
+        with open(run_dir / "metrics_epoch.csv", newline="") as fh:
+            epochs = list(csv.DictReader(fh))
     return {"wall_s": wall, "report": report, "dir": run_dir, "epochs": epochs,
             "stdout": proc.stdout}
 
 
-def log_run(name: str, r: dict, card: str) -> None:
+def log_run(name: str, r: dict, card: str, tag: str = "driver", batch: int = TRAIN_BATCH) -> None:
     sec = r["report"]["seconds"]
     start = r["wall_s"] - sec["main"]
-    log(f"[driver] run {name}: {r['wall_s']:.1f} s wall = process start, imports and exit "
+    log(f"[{tag}] run {name}: {r['wall_s']:.1f} s wall = process start, imports and exit "
         f"{start:.1f} + CUDA init {sec['device_init']:.1f} + data module "
         f"{sec['data_module']:.1f} + model build {sec['model_build']:.1f} + fit "
         f"{sec.get('fit', 0.0):.1f} + test {sec.get('test', 0.0):.1f} s [{card}]")
     for row in r["epochs"]:
-        pairs = DRIVER_BATCHES * TRAIN_BATCH
-        log(f"[driver] run {name} epoch at step {row['step']}: train_loss "
+        pairs = DRIVER_BATCHES * batch
+        log(f"[{tag}] run {name} epoch at step {row['step']}: train_loss "
             f"{float(row['train_loss']):.5f}, val_loss {float(row['val_loss']):.5f}; "
             f"{pairs} pairs in {float(row['epoch_time']):.3f} s inside Trainer.fit, "
             f"{pairs / float(row['epoch_time']):.1f} pairs/s (host clock over the train "
             f"batches, read at the epoch's end) [{card}]")
     for save in r["report"]["checkpoint_saves"]:
-        log(f"[driver] run {name} checkpoint {save['name']}: {save['gb']:.3f} GB, copy to the "
+        log(f"[{tag}] run {name} checkpoint {save['name']}: {save['gb']:.3f} GB, copy to the "
             f"host {save['copy_s']:.2f} s, write {save['write_s']:.2f} s [{card}]")
 
 
@@ -1623,6 +1701,401 @@ def phase_tasks(card: str, pretrain_ckpt: Path, driver_s: float) -> dict:
     return out
 
 
+def write_grounding_mirror(root: Path, seed: int = 0) -> dict:
+    """A synthetic MIMIC-CXR / Chest ImaGenome mirror in the JAX package's
+    layout (``tests/test_mimic.py``), for phase 12: per image a 512² uint8
+    array in the image cache (the size the JAX ingest caches), a report and
+    a silver scene graph of 10 objects (boxes inside the image; the
+    patient's left on the image's right) and GROUNDING_SENTENCES sentences
+    of 6-30 words on 1-3 of them; the split tables (GROUNDING_DICOMS images
+    each for train, valid and test; the test split is also the gold set,
+    ``images_to_avoid.csv``) and the gold table of the test images' boxes.
+    Returns the two mirror directories and counts for the log."""
+    import pandas as pd
+
+    from gloria_tpu_torch.data.mimic import GOLD_OBJECTS_FILE, ImaGenomeFiler, MimicCxrFiler
+
+    rng = np.random.RandomState(seed)
+    filer = MimicCxrFiler(str(root / "mimic-cxr"))
+    imagenome = ImaGenomeFiler(str(root / "chest-imagenome"))
+    records, gold_rows, words = [], [], []
+    for i in range(3 * GROUNDING_DICOMS):
+        dicom = f"{i:08d}-smoke"
+        rec = {"subject_id": 10000000 + i // 2, "study_id": 50000000 + i, "dicom_id": dicom}
+        records.append(rec)
+        path = Path(filer.image_cache_path(dicom))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(path, rng.randint(0, 256, (512, 512)).astype(np.uint8))
+        objects = []
+        for name in rng.choice(GROUNDING_BBOXES, 10, replace=False):
+            base = 256 if name.startswith("left") else 0 if name.startswith("right") else 128
+            x1, y1 = base + int(rng.randint(0, 120)), int(rng.randint(20, 300))
+            x2 = min(511, x1 + int(rng.randint(40, 200)))
+            y2 = min(511, y1 + int(rng.randint(40, 200)))
+            objects.append({"object_id": f"{dicom}_{name}", "bbox_name": str(name),
+                            "original_x1": x1, "original_y1": y1,
+                            "original_x2": x2, "original_y2": y2})
+        attributes = {o["object_id"]: {"object_id": o["object_id"], "phrase_IDs": [],
+                                       "phrases": [], "attributes": []} for o in objects}
+        sentences = []
+        for k in range(GROUNDING_SENTENCES):
+            on = [objects[j] for j in rng.choice(len(objects), rng.randint(1, 4), replace=False)]
+            conds = list(rng.choice(GROUNDING_CONDITIONS, rng.randint(1, 3), replace=False))
+            text = (["There", "is"] + list(rng.choice(GROUNDING_WORDS[:10], rng.randint(1, 3)))
+                    + [" and ".join(conds), "in", "the", " and the ".join(o["bbox_name"] for o in on)])
+            text = " ".join(text).split()
+            target = int(rng.randint(6, 31))
+            text += list(rng.choice(GROUNDING_WORDS, max(0, target - len(text))))
+            words.append(len(text))
+            text = " ".join(text) + "."
+            sentences.append(text)
+            for o in on:
+                context = str(rng.choice(["yes", "yes", "no"]))
+                a = attributes[o["object_id"]]
+                a["phrase_IDs"].append(f"{dicom}_s{k}")
+                a["phrases"].append(text)
+                a["attributes"].append([f"anatomicalfinding|{context}|{c}" for c in conds])
+                gold_rows.append({"image_id": f"{dicom}.dcm", "bbox": o["bbox_name"],
+                                  "coord_original": "({}, {}, {}, {})".format(
+                                      o["original_x1"], o["original_y1"], o["original_x2"],
+                                      o["original_y2"]),
+                                  "row_id": 1000 * i + k, "sentence": text,
+                                  "label_name": conds[0], "context": context})
+        sg = Path(imagenome.get_silver_scene_graph_json_file(dicom))
+        sg.parent.mkdir(parents=True, exist_ok=True)
+        sg.write_text(json.dumps({"objects": objects, "attributes": list(attributes.values())}))
+        report = Path(filer.get_full_path(filer.report_relpath(rec["subject_id"], rec["study_id"])))
+        report.parent.mkdir(parents=True, exist_ok=True)
+        report.write_text("FINDINGS: " + " ".join(sentences))
+    df = pd.DataFrame(records)
+    splits = Path(imagenome.get_full_path("silver_dataset/splits"))
+    splits.mkdir(parents=True, exist_ok=True)
+    n = GROUNDING_DICOMS
+    for k, name in enumerate(("train", "valid", "test")):
+        df.iloc[k * n : (k + 1) * n].to_csv(splits / f"{name}.csv", index=False)
+    df.iloc[2 * n :].to_csv(splits / "images_to_avoid.csv", index=False)
+    gold = pd.DataFrame([r for r in gold_rows if r["image_id"][:-4] in set(df.iloc[2 * n :].dicom_id)])
+    Path(imagenome.get_full_path("gold_dataset")).mkdir(parents=True, exist_ok=True)
+    gold.to_csv(imagenome.get_full_path(f"gold_dataset/{GOLD_OBJECTS_FILE}"), sep="\t", index=False)
+    return {"mimic": str(root / "mimic-cxr"), "imagenome": str(root / "chest-imagenome"),
+            "words": (min(words), max(words)), "gold_rows": len(gold)}
+
+
+def grounding_config(name: str, mirror: dict):
+    """Phase 12's config ``name`` (``finetune``, ``val``): the shipped config
+    with the overrides the card's run needs, each returned for printing."""
+    from gloria_tpu_torch.configs import load_config
+
+    cfg = load_config(str(ROOT / GROUNDING_CONFIGS[name]))
+    overrides = {
+        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
+        # the vocabulary from the corpus, as phases 8 and 10 make it
+        "model.text.bert_type": None,
+        # the synthetic mirror: the repository holds no MIMIC-CXR or ImaGenome data
+        "data.mimic_cxr_download_directory": mirror["mimic"],
+        "data.imagenome_download_directory": mirror["imagenome"],
+    }
+    if name == "finetune":
+        overrides["lightning.trainer.max_epochs"] = 1
+    for path, value in overrides.items():
+        cfg.set_path(path, value)
+    return cfg, overrides
+
+
+def check_localization(run_dir: Path, splits: dict, what: str) -> dict:
+    """Each split's ``localization/<split>/sentences.csv`` with its expected
+    row count, its five artifact folders with one file a row, and a finite
+    AUROC exactly on the rows whose label has a box pixel; returns the
+    tables."""
+    import pandas as pd
+
+    tables = {}
+    for split, rows in splits.items():
+        d = run_dir / "localization" / split
+        check((d / "sentences.csv").is_file(), f"{what}: localization/{split}/sentences.csv")
+        df = pd.read_csv(d / "sentences.csv")
+        check(len(df) == rows, f"{what} {split}: {len(df)} sentence rows, {rows} expected")
+        for folder in ("attn", "image", "label", "roc_curve", "pr_curve"):
+            check(len(list((d / folder).iterdir())) == rows, f"{what} {split}: {folder}/ complete")
+        boxed = np.asarray([np.load(d / "label" / f"{sid}.npy").sum() > 0
+                            for sid in df["dicom_sent_id"]])
+        check(bool((np.isfinite(df["auroc"].to_numpy()) == boxed).all()),
+              f"{what} {split}: AUROC finite exactly where the label has a box")
+        check(bool(boxed.any()), f"{what} {split}: some labels have a box")
+        tables[split] = df
+    return tables
+
+
+def phase_grounding(card: str, pretrain_ckpt: Path) -> dict:
+    """Phase 12: the ImaGenome grounding path at full width from phase 10's
+    best checkpoint: its train step's K1 and K2 inputs, the step with and
+    without ``return_attn``, ``EvaluateLocalization.evaluate_batch``, one
+    B=8 step card vs CPU, then ``python -m gloria_tpu_torch.run`` on both
+    imagenome configs."""
+    import torch
+
+    from gloria_tpu_torch import builder
+    from gloria_tpu_torch.configs import Config, loads_config, save_config
+    from gloria_tpu_torch.data.data_module import build_data_module
+    from gloria_tpu_torch.experiments import fused_bn
+    from gloria_tpu_torch.ops import gloria_loss, local_sim
+    from gloria_tpu_torch.training import train
+    from gloria_tpu_torch.training.checkpoints import load_checkpoint
+    from gloria_tpu_torch.training.localization import (EvaluateLocalization,
+                                                        batch_localization_metrics,
+                                                        sentence_attention)
+    from gloria_tpu_torch.utils.viz import get_attn_overlay
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fused_bn.launches_fwd = fused_bn.launches_bwd = 0  # this phase runs neither
+    out: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="gloria_smoke_grounding_"))
+    try:
+        t = time.perf_counter()
+        mirror = write_grounding_mirror(work / "mirror")
+        log(f"[grounding] synthetic MIMIC-CXR / ImaGenome mirror in {work}: "
+            f"{GROUNDING_DICOMS} images a split (512² uint8), 10 silver objects and "
+            f"{GROUNDING_SENTENCES} sentences each ({mirror['words'][0]}-{mirror['words'][1]} "
+            f"words), {mirror['gold_rows']} gold rows; written in {time.perf_counter() - t:.1f} s")
+        cfg, overrides = grounding_config("finetune", mirror)
+        log(f"[grounding] {GROUNDING_CONFIGS['finetune']} read by gloria_tpu_torch.configs."
+            "load_config; overrides: " + ", ".join(f"{k}={v!r}" for k, v in overrides.items()))
+        batch_size = int(cfg.train.batch_size)
+
+        # ---- in-process: the full-width train step on a mirror batch
+        weights = load_checkpoint(pretrain_ckpt)[0]["model"]
+        t = time.perf_counter()
+        module = build_data_module(cfg, device="cuda")
+        it = iter(module.train_dataloader())
+        batch = next(it)
+        del it
+        log(f"[grounding] imagenome data module (vocabulary from the corpus) and one train "
+            f"batch of {batch_size} on the card: {time.perf_counter() - t:.1f} s")
+        model = builder.build_gloria_model(cfg, seed=0)
+        model.load_state_dict(weights, strict=True)
+        model.img_encoder.to(memory_format=torch.channels_last)
+        tx = builder.build_optimizer(cfg, model)
+        state = train.create_train_state(model, tx, seed=0, device="cuda")
+        attn_step, _ = train.make_pretrain_steps(model, tx, return_attn=True)
+        plain_step, _ = train.make_pretrain_steps(model, tx)
+        seen = {}
+        fwd, bwd = local_sim._similarities, local_sim._similarities_bwd
+
+        def record_fwd(words, regions, mask, temp1, temp2, agg):
+            seen["fwd"] = (words, regions, mask, {"temp1": temp1, "temp2": temp2, "agg": agg})
+            return fwd(words, regions, mask, temp1, temp2, agg)
+
+        def record_bwd(words, regions, mask, g, temp1, temp2, agg, packed=None):
+            seen["bwd"] = (words, regions, mask, g, {"temp1": temp1, "temp2": temp2, "agg": agg})
+            return bwd(words, regions, mask, g, temp1, temp2, agg, packed=packed)
+
+        local_sim._similarities, local_sim._similarities_bwd = record_fwd, record_bwd
+        try:
+            state, m = attn_step(state, batch)
+        finally:
+            local_sim._similarities, local_sim._similarities_bwd = fwd, bwd
+        torch.cuda.synchronize()
+        (B, W, R), side = m["_attn"].shape, int(round(m["_attn"].shape[2] ** 0.5))
+        check((B, W, R) == (batch_size, int(cfg.data.text.word_num), side * side),
+              f"_attn {B} x {W} x {R}: a batch's texts by words by the regions' square grid")
+        check(all(bool(torch.isfinite(m[k]).all()) for k in m), "grounding step: finite outputs")
+        check(float(m["attn_seg_loss"]) > 0, "grounding step: attn_seg_loss > 0")
+        words, regions, mask, _ = seen["fwd"]
+        log(f"[grounding] train step at B={B}: {int(mask.sum())} valid words over {B} texts "
+            f"(cap_len {int(batch['cap_lens'].min())}-{int(batch['cap_lens'].max())}), "
+            f"loss {float(m['loss']):.5f}, attn_seg_loss {float(m['attn_seg_loss']):.5f}")
+        out["k1"] = k1_numbers(*seen["fwd"], "grounding train step's", card, 5, 2)
+        out["k2"] = k2_numbers(*seen["bwd"], "grounding train step's", card)
+        del seen, words, regions, mask
+
+        launches = {}
+        for name, step in (("return_attn", attn_step), ("plain", plain_step)):
+            local_sim.launches = local_sim.launches_bwd = 0
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            launches[name] = (local_sim.launches, local_sim.launches_bwd)
+        check(launches["return_attn"] == launches["plain"] == (1, 1),
+              f"one K1 and one K2 launch a step, with and without return_attn: {launches}")
+        step_ms = {}
+        for name, step in (("return_attn", attn_step), ("plain", plain_step),
+                           ("return_attn again", attn_step), ("plain again", plain_step)):
+            step_ms[name] = cuda_ms(lambda: step(state, batch), 1)
+        out["step_ms"] = step_ms
+        log(f"[grounding] train step at B={B} (median of 5 after a warm-up, CUDA events): "
+            + ", ".join(f"{k} {v:.2f} ms ({B / v * 1e3:.1f} pairs/s)" for k, v in step_ms.items())
+            + f" [{card}]")
+
+        # what return_attn adds to a step, timed alone on one train-mode forward
+        with torch.no_grad():
+            model.train()
+            img_l, img_g, txt_l, txt_g, grid = model(batch, generator=torch.Generator(
+                device="cuda").manual_seed(0))
+            _, _, attn = model.calc_loss(img_l, img_g, txt_l, txt_g, batch["cap_lens"], grid,
+                                         batch["segmentation_labels"])
+            out["attention_outputs_ms"] = cuda_ms(lambda: train.attention_outputs(
+                model, batch, img_l, img_g, txt_l, txt_g, attn), 5)
+            del img_l, img_g, txt_l, txt_g, attn
+        log(f"[grounding] train.attention_outputs alone (what return_attn adds: the aligned "
+            f"eval-path attention for _local_sims, the global diagonal, detaching _attn): "
+            f"{out['attention_outputs_ms']:.3f} ms (CUDA events) [{card}]")
+
+        state, m = attn_step(state, batch)
+        attn = m["_attn"]
+        valid = gloria_loss.make_word_mask(batch["cap_lens"], W, "train")
+        rows = attn[valid]
+        even = float(((rows.amax(-1) - rows.amin(-1)) < 1e-6).float().mean())
+        log(f"[grounding] phase 10's weights on the mirror: the valid words' attention spans "
+            f"{float(rows.min()):.3e}-{float(rows.max()):.3e} (uniform {1 / R:.3e}); "
+            f"{even:.1%} of the valid words attend evenly to every region")
+        del rows
+        sims = {"local": m["_local_sims"], "global": m["_global_sims"]}
+        eval_ms = {}
+        for full in (False, True):
+            cb = EvaluateLocalization(cfg, save_full_data=full)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                means = cb.evaluate_batch(m["_attn"], batch, sims=sims, split="train")
+                times.append((time.perf_counter() - t) * 1e3)
+            eval_ms["with curves and artifacts" if full else "rows only"] = statistics.median(times)
+            check(np.isfinite(means["auroc"]), "evaluate_batch: finite mean AUROC")
+        out["evaluate_ms"] = eval_ms
+        log(f"[grounding] EvaluateLocalization.evaluate_batch on {B} sentences (host clock, "
+            f"median of 5; overlays and curves on the host, metrics on the card): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in eval_ms.items()) + f" [{card}]")
+        del model, state, tx, attn_step, plain_step, m, attn, valid, sims, batch, module
+        torch.cuda.empty_cache()
+
+        # ---- card vs CPU: one B=8 batch, dropout 0, the same weights: seed 0's,
+        # whose attention is not uniform (each word peaks on a region)
+        small = Config(cfg.to_dict())
+        small.train.batch_size, small.train.num_workers = GROUNDING_CHECK_BATCH, 1
+        small.set_path("model.text.bert_config.dropout_rate", 0.0)
+        raw = next(iter(build_data_module(small, device="cpu").loader("train", prefetch=1)))
+        cpu_model = builder.build_gloria_model(small, seed=0)
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        t = time.perf_counter()
+        got = {"cuda": train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")),
+                                            return_attn=True)[0],
+               "cpu": train.loss_and_grads(cpu_model, raw, return_attn=True)[0]}
+        seconds = time.perf_counter() - t
+        labels = raw["segmentation_labels"]
+        metrics = {}
+        for device, mm in got.items():
+            grid = sentence_attention(mm["_attn"], raw["cap_lens"], (side, side))
+            overlays = np.stack([get_attn_overlay(g, tuple(labels.shape[1:3])) for g in grid])
+            metrics[device] = batch_localization_metrics(overlays, labels.to(device), grid)
+        errs = {k: abs(float(got["cuda"][k]) - float(got["cpu"][k])) / abs(float(got["cpu"][k]))
+                for k in ("loss", "attn_seg_loss")}
+        diffs = {k: float((got["cuda"][k].cpu() - got["cpu"][k]).abs().max())
+                 for k in ("_attn", "_local_sims", "_global_sims")}
+        metric_diffs = {k: float(np.nanmax(np.abs(metrics["cuda"][k] - metrics["cpu"][k]), initial=0))
+                        for k in metrics["cpu"]}
+        same_nan = all(np.array_equal(np.isnan(metrics["cuda"][k]), np.isnan(metrics["cpu"][k]))
+                       for k in metrics["cpu"])
+        valid = gloria_loss.make_word_mask(raw["cap_lens"], W, "train")
+        peak = float(got["cpu"]["_attn"][valid].max())
+        log(f"[grounding] card vs CPU, one B={GROUNDING_CHECK_BATCH} mirror batch through the "
+            f"train step with return_attn (dropout 0, seed 0's weights, the valid words' "
+            f"attention up to {peak:.4f} against a uniform {1 / R:.3e}; {seconds:.1f} s): "
+            + ", ".join(f"{k} relative {v:.2e}" for k, v in errs.items())
+            + f" (tol {STEP_LOSS_RTOL}); max_abs_diff _attn {diffs['_attn']:.3e} (tol "
+            f"{GROUNDING_ATTN_TOL}), _local_sims {diffs['_local_sims']:.3e}, _global_sims "
+            f"{diffs['_global_sims']:.3e} (tol {GROUNDING_SIMS_TOL}); localization metrics "
+            "max_abs_diff " + ", ".join(f"{k} {v:.3e}" for k, v in metric_diffs.items())
+            + f" (tol {GROUNDING_METRIC_TOL}, top-k {GROUNDING_TOPK_TOL})")
+        check(all(v <= STEP_LOSS_RTOL for v in errs.values()), "grounding losses card vs CPU")
+        check(diffs["_attn"] <= GROUNDING_ATTN_TOL, "grounding _attn card vs CPU")
+        check(max(diffs["_local_sims"], diffs["_global_sims"]) <= GROUNDING_SIMS_TOL,
+              "grounding per-pair similarities card vs CPU")
+        check(same_nan, "the same rows without a box, card and CPU")
+        check(peak > 2 / R, "card vs CPU on an attention that is not uniform")
+        for k, v in metric_diffs.items():
+            check(v <= GROUNDING_METRIC_TOL.get(k, GROUNDING_TOPK_TOL),
+                  f"localization metric {k} card vs CPU")
+        out["card_vs_cpu"] = {"rel": errs, "max_abs": diffs, "metrics": metric_diffs}
+        del gpu_model, cpu_model, got, raw, weights, valid
+        torch.cuda.empty_cache()
+
+        # ---- the driver on both configs
+        free = shutil.disk_usage(work).free
+        need = checkpoint_bytes(cfg)[1] + (512 << 20)
+        check(free >= need, f"{need / 1e9:.2f} GB free in {work} (found {free / 1e9:.2f} GB)")
+        val_cfg, val_overrides = grounding_config("val", mirror)
+        log(f"[grounding] {GROUNDING_CONFIGS['val']}: overrides "
+            + ", ".join(f"{k}={v!r}" for k, v in val_overrides.items()))
+        save_config(cfg, str(work / "finetune.yaml"))
+        save_config(val_cfg, str(work / "val.yaml"))
+        runs = {"finetune": run_driver(work / "finetune.yaml", work / "finetune", "--train",
+                                       "--test", "--ckpt", str(pretrain_ckpt))}
+        best = loads_config((work / "finetune" / "best_ckpts.yaml").read_text()).seed_0
+        check(best is not None and (Path(best) / "state.pt").is_file(),
+              "the finetune run's best_ckpts.yaml names a checkpoint")
+        runs["val"] = run_driver(work / "val.yaml", work / "val", "--test", "--ckpt", best)
+        runs["val --swap_left_right"] = run_driver(work / "val.yaml", work / "swap", "--test",
+                                                   "--ckpt", best, "--swap_left_right")
+        for name, r in runs.items():
+            log_run(name, r, card, tag="grounding", batch=batch_size)
+        ft = runs["finetune"]
+        check(len(ft["epochs"]) == 1 and all(np.isfinite(float(ft["epochs"][0][k]))
+                                             for k in ("train_loss", "val_loss")),
+              "finetune: one epoch with finite train and val losses")
+        # the train metrics go to metrics_train.jsonl every update_interval (1000)
+        # steps, so the first step's; the epoch row holds the mean loss
+        steps = [json.loads(ln) for ln in open(ft["dir"] / "metrics_train.jsonl")]
+        steps = [r for r in steps if "loss" in r]
+        epoch = {k: float(v) for k, v in ft["epochs"][0].items() if k.startswith("val_")}
+        log(f"[grounding] finetune logged train steps: " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.5f}, attn_seg_loss {r['attn_seg_loss']:.5f}"
+            for r in steps) + "; epoch: " + ", ".join(f"{k} {v:.5f}" for k, v in epoch.items()))
+        check(bool(steps) and all(np.isfinite(r["loss"]) and r["attn_seg_loss"] > 0
+                                  for r in steps), "finetune: finite loss, attn_seg_loss > 0")
+        check(all(np.isfinite(v) for v in epoch.values()) and epoch["val_attn_seg_loss"] > 0,
+              "finetune: finite validation losses, val_attn_seg_loss > 0")
+        rows = DRIVER_BATCHES * batch_size
+        tables = {"finetune": check_localization(ft["dir"], {"train": batch_size, "val": rows,
+                                                             "test": rows}, "finetune")}
+        for name in ("val", "val --swap_left_right"):
+            tables[name] = check_localization(runs[name]["dir"], {"test": rows}, name)
+        expected = {"finetune": (3 * DRIVER_BATCHES, DRIVER_BATCHES), "val": (DRIVER_BATCHES, 0),
+                    "val --swap_left_right": (DRIVER_BATCHES, 0)}
+        for name, r in runs.items():
+            got_l = r["report"]["launches"]
+            log(f"[grounding] run {name} launches: local_sim_fwd {got_l['local_sim_fwd']}, "
+                f"local_sim_bwd {got_l['local_sim_bwd']}")
+            check((got_l["local_sim_fwd"], got_l["local_sim_bwd"]) == expected[name],
+                  f"{name}: one K1 launch a train and an eval step, one K2 launch a train step")
+        plain, swapped = tables["val"]["test"], tables["val --swap_left_right"]["test"]
+        differ = int((plain["sentence"] != swapped["sentence"]).sum())
+        sided = int(plain["sentence"].str.contains("left|right").sum())
+        log(f"[grounding] --swap_left_right: {differ} of {len(plain)} test sentences differ from "
+            f"the plain run's ({sided} name left or right); mean AUROC plain "
+            f"{np.nanmean(plain['auroc']):.4f}, swapped {np.nanmean(swapped['auroc']):.4f}")
+        check(differ > 0 and differ >= sided, "the swapped run's sentences differ")
+        ref = tables["finetune"]["test"]
+        again = {k: float(np.nanmax(np.abs(plain[k] - ref[k]), initial=0))
+                 for k in ("auroc", "local_sims", "global_sims")}
+        log(f"[grounding] the val config on the finetune run's checkpoint against that run's own "
+            f"test rows: max_abs_diff " + ", ".join(f"{k} {v:.3e}" for k, v in again.items()))
+        check(list(plain["dicom_sent_id"]) == list(ref["dicom_sent_id"])
+              and max(again.values()) <= 1e-3, "the val config reproduces the finetune test rows")
+        out["launches"] = tuple(sum(r["report"]["launches"][k] for r in runs.values())
+                                for k in ("local_sim_fwd", "local_sim_bwd"))
+        out["runs"] = {name: {"wall_s": r["wall_s"], "seconds": r["report"]["seconds"]}
+                       for name, r in runs.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["fused_launches"] = {"fwd": fused_bn.launches_fwd, "bwd": fused_bn.launches_bwd}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[grounding] launches on the grounding path (its three driver runs): local_sim_fwd "
+        f"{out['launches'][0]}, local_sim_bwd {out['launches'][1]}; fused_bn_fwd / bwd in this "
+        f"process {out['fused_launches']['fwd']} / {out['fused_launches']['bwd']}")
+    log(f"[grounding] phase {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1797,21 +2270,27 @@ def main() -> int:
 
         # ---- 11. tasks: classification and segmentation from phase 10's best
         tk = phase_tasks(card, dr["best"], time.perf_counter() - t10)
+
+        # ---- 12. grounding: the ImaGenome configs from phase 10's best
+        gr = phase_grounding(card, dr["best"])
+        worst_err = max(worst_err, gr["k1"]["err"])
+        bwd_err, bwd_ratio = max(bwd_err, gr["k2"]["err"]), max(bwd_ratio, gr["k2"]["ratio"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 12. result lines -------------------------------------------------
+    # ---- 13. result lines -------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_fwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
         "launches": main_path_launches + tr["launches"][0] + ld["launches"][0]
-        + dr["launches"][0],
+        + dr["launches"][0] + gr["launches"][0],
         "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0],
                              "loader_train": ld["launches"][0], "driver": dr["launches"][0],
-                             "tasks": tk["launches"]["local_sim_fwd"]},
+                             "tasks": tk["launches"]["local_sim_fwd"],
+                             "grounding": gr["launches"][0]},
         "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
         "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
         "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -1819,25 +2298,33 @@ def main() -> int:
         "wrapper_ms": s1["wrapper_ms"], "workspace_bytes": s1["workspace_bytes"],
     } | {f"train_{k}": tr["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "bound_f32_ms", "wrapper_ms", "workspace_bytes")}
-      | {"train_passes_ms": tr["k1"]["passes"]}, {
+      | {"train_passes_ms": tr["k1"]["passes"]}
+      | {f"grounding_{k}": gr["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "bound_f32_ms", "wrapper_ms",
+                                                  "workspace_bytes")}
+      | {"grounding_passes_ms": gr["k1"]["passes"]}, {
         "name": "local_sim_bwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
-        "launches": tr["launches"][1] + ld["launches"][1] + dr["launches"][1],
+        "launches": tr["launches"][1] + ld["launches"][1] + dr["launches"][1]
+        + gr["launches"][1],
         "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1],
                              "driver": dr["launches"][1],
-                             "tasks": tk["launches"]["local_sim_bwd"]},
+                             "tasks": tk["launches"]["local_sim_bwd"],
+                             "grounding": gr["launches"][1]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
         "bound_f32_ms": tr["k2_bound_f32_ms"], "library_ms": None,
         "passes_ms": tr["k2_passes"],
-    }] + [{
+    } | {f"grounding_{k}": gr["k2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "bound_f32_ms", "passes")}] + [{
         "name": f"fused_bn_{key}", "route": "cuda",
         "source": f"gloria_tpu_torch/csrc/fused_bn_{key}.cu",
         "replaces": f"scripts/experiments/fused_bn.py:{line}",
         "launches": launches,
-        "launches_by_path": {"fused_tail": launches, "tasks": tk["launches"][f"fused_bn_{key}"]},
+        "launches_by_path": {"fused_tail": launches, "tasks": tk["launches"][f"fused_bn_{key}"],
+                             "grounding": gr["fused_launches"][key]},
         "max_abs_err": ft["worst"][key][0], "max_err_over_tol": ft["worst"][key][1],
         "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
         "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],

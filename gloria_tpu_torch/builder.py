@@ -91,17 +91,19 @@ def accumulate_grad_batches(cfg: Config) -> int:
 
 
 def init_gloria(cfg: Config, batch: dict | None = None, seed: int = 0,
-                device: torch.device | str | None = None):
+                device: torch.device | str | None = None, return_attn: bool = False):
     """Model, optimizer state and steps: returns ``(model, state, train_step,
     eval_step)`` with the model on ``device`` (the card unless the caller
-    names another).  ``batch`` is not needed (see the module docstring)."""
+    names another).  ``batch`` is not needed (see the module docstring).
+    ``return_attn``: the train step also returns the attention and the
+    per-pair similarities (``training.train.make_pretrain_steps``)."""
     if cfg.train and cfg.train.loss_chunk is not None:
         raise NotImplementedError("train.loss_chunk: the port's local loss has one route "
                                   "(queued in ROADMAP.md A1.8)")
     model = build_gloria_model(cfg, seed=seed)
     tx = build_optimizer(cfg, model)
     state: TrainState = create_train_state(model, tx, seed=seed, device=device)
-    train_step, eval_step = make_pretrain_steps(model, tx)
+    train_step, eval_step = make_pretrain_steps(model, tx, return_attn=return_attn)
     return model, state, train_step, eval_step
 
 

@@ -13,7 +13,8 @@ crops differ from run to run).  The :class:`~.loader.PrefetchLoader`'s
 ``training.train.to_device`` and passes the collate's host-only ``_`` keys
 through.
 
-Not ported yet, and refused: the ``imagenome`` module (ROADMAP.md A6).  The
+``imagenome`` (:class:`.mimic.ImaGenomeDataModule`, imported when asked
+for) builds the ImaGenome grounding datasets behind the same collates.  The
 loader runs as one process (``process_index`` 0 of 1) until the
 multi-device slice (A7).
 """
@@ -34,7 +35,6 @@ from .loader import PrefetchLoader
 from .pretraining_dataset import CheXpertPretrainingDataset, SyntheticPretrainingDataset
 from .tokenizer import WordPieceTokenizer, load_tokenizer
 
-_UNPORTED_MODULES = {"imagenome": "A6"}
 _SPLIT_SEEDS = {"train": 0, "valid": 1, "test": 2}
 
 
@@ -162,13 +162,14 @@ DATA_MODULES: dict[str, Any] = {
     "pneumonia": PneumoniaDataModule,
     "pneumothorax": PneumothoraxDataModule,
     "synthetic": SyntheticDataModule,
+    # "imagenome": data/mimic.py's ImaGenomeDataModule, imported by build_data_module
 }
 
 
 def build_data_module(cfg: Config, device: torch.device | str | None = None) -> DataModule:
     name = (cfg.data.dataset or "synthetic").lower() if cfg.data else "synthetic"
-    if name in _UNPORTED_MODULES:
-        raise NotImplementedError(
-            f"data.dataset {name!r} is not ported yet (queued in ROADMAP.md "
-            f"{_UNPORTED_MODULES[name]})")
+    if name == "imagenome":
+        from .mimic import ImaGenomeDataModule
+
+        return ImaGenomeDataModule(cfg, device=device)
     return DATA_MODULES[name](cfg, device=device)

@@ -20,6 +20,21 @@ scheduler, early stopping).  ``--fused_kernel`` is accepted: the port's
 local loss always runs the K1/K2 kernels on a card.  Precision 32 is the
 only one ported: on a card the driver turns TF32 off for cuDNN and cuBLAS.
 
+The ImaGenome grounding configs run in the pretrain phase:
+``lightning.evaluate_localization`` scores the attention of the train
+(every ``log_train_every`` batches), validation and test steps against the
+boxes and writes ``<run dir>/localization/<split>/sentences.csv``, with the
+full artifacts when ``data.gold_test``;
+``lightning.weight_instances_by_localization`` reweights the training
+instances each epoch; either makes the train step return its attention.
+The data ablation flags (``--randomize_reports``, ``--swap_left_right``,
+...) reach the ``imagenome`` data module:
+
+    python -m gloria_tpu_torch.run -c configs/imagenome_attn_finetune_config.yaml \
+        --ckpt <pretrain step dir> --train --test
+    python -m gloria_tpu_torch.run -c configs/imagenome_pretrain_val_config.yaml \
+        --ckpt <step dir> --test [--swap_left_right]
+
 The ``classification`` and ``segmentation`` phases train a task model
 (``builder.init_task``): ``--ckpt`` names a pretrain checkpoint whose image
 encoder is grafted in (the whole ``img_encoder`` into the classifier, its
@@ -53,8 +68,6 @@ import numpy as np
 from .configs import Config, dumps_json, load_config, save_config
 
 PHASES = ("pretrain", "classification", "segmentation")
-_DATA_ABLATIONS = ("randomize_reports", "randomize_objects_mode", "swap_left_right",
-                   "swap_conditions", "generate_sent", "mask_mode", "mask_prob")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -160,11 +173,8 @@ def refuse_unported(cfg: Config, args) -> None:
         raise ValueError(f"unknown phase {cfg.phase!r}; choose from {PHASES}")
     if str(cfg.get_path("lightning.trainer.precision")) in ("16", "bf16"):
         refuse("lightning.trainer.precision 16 / bf16 (the bf16 compute policy; set 32)", "A1.2")
-    for key in ("train.nvis", "lightning.evaluate_localization",
-                "lightning.weight_instances_by_localization"):
-        if cfg.get_path(key):
-            refuse(f"{key} (training-time attention callbacks"
-                   + (", with --profile" if args.profile else "") + ")", "A6")
+    if cfg.get_path("train.nvis"):
+        refuse("train.nvis (the training-time attention plots; set null)", "A6.1")
     for key in ("attention_divergence_loss_weight", "attention_entropy_loss_weight"):
         if cfg.get_path(f"model.gloria.{key}") is not None:
             refuse(f"model.gloria.{key} (the flat-attention ablation losses)", "A1.6")
@@ -176,9 +186,31 @@ def refuse_unported(cfg: Config, args) -> None:
         refuse("--steps_per_dispatch above 1", "A1.8")
     if cfg.get_path("train.loss_chunk") is not None:
         refuse("--loss_chunk (the port's local loss has one route)", "A1.8")
-    for key in _DATA_ABLATIONS:
-        if cfg.get_path(f"data.{key}"):
-            refuse(f"data.{key} (the ImaGenome data ablations)", "A6")
+
+
+def localization_callbacks(cfg: Config, dm) -> tuple[list, object]:
+    """The pretrain phase's attention callbacks that ``cfg.lightning`` asks
+    for, and the train loader when one of them must hold the loader the
+    trainer iterates (``WeightInstancesByLocalization`` sets its weights),
+    else None."""
+    from .training.localization import EvaluateLocalization, WeightInstancesByLocalization
+
+    lightning = cfg.lightning or Config()
+    loc_cfg, wil_cfg = lightning.evaluate_localization, lightning.weight_instances_by_localization
+    callbacks, train_loader = [], None
+    if wil_cfg:
+        train_loader = dm.train_dataloader()
+        callbacks.append(WeightInstancesByLocalization(
+            train_loader, len(train_loader.dataset),
+            weight_mode=wil_cfg.weight_mode or "attn_entropy", temp=float(wil_cfg.temp or 0.2)))
+    if loc_cfg:
+        callbacks.append(EvaluateLocalization(
+            cfg, save_dir=Path(cfg.output_dir) / "localization",
+            eval_attn_overlay_mode=loc_cfg.eval_attn_overlay_mode or "upsample",
+            plot_attn_overlay_mode=loc_cfg.plot_attn_overlay_mode or "upsample",
+            log_train_every=int(loc_cfg.log_train_every or 100),
+            save_full_data=bool(cfg.data.gold_test) if cfg.data else False))
+    return callbacks, train_loader
 
 
 def main(cfg: Config, args, device=None) -> dict:
@@ -231,9 +263,11 @@ def main(cfg: Config, args, device=None) -> dict:
     seed = int(cfg.random_seed or 0)
     payload = load_checkpoint(args.ckpt)[0] if args.ckpt else None
     resume = bool(args.resume and payload is not None and "opt_state" in payload)
-    callbacks, extractor, task = [], None, None
+    callbacks, extractor, task, train_loader = [], None, None, None
     if phase == "pretrain":
-        model, state, train_step, eval_step = builder.init_gloria(cfg, seed=seed, device=device)
+        callbacks, train_loader = localization_callbacks(cfg, dm)
+        model, state, train_step, eval_step = builder.init_gloria(
+            cfg, seed=seed, device=device, return_attn=bool(callbacks))
         if payload is not None:
             restore_train_state(state, payload, resume=resume)
         convnet = model.img_encoder
@@ -263,7 +297,9 @@ def main(cfg: Config, args, device=None) -> dict:
     launches_before = (local_sim.launches, local_sim.launches_bwd)
     if args.train:
         t = time.perf_counter()
-        state = trainer.fit(state, dm.train_dataloader(), dm.val_dataloader())
+        if train_loader is None:
+            train_loader = dm.train_dataloader()
+        state = trainer.fit(state, train_loader, dm.val_dataloader())
         timing["fit"] = time.perf_counter() - t
         results["best_ckpt"] = manager.best()
     if args.val:

@@ -1,8 +1,6 @@
-"""Metrics of the downstream tasks: AUROC, average precision, dice.
+"""Metrics: AUROC, average precision, dice, and the localization metrics.
 
-Port of ``gloria_tpu.training.metrics`` (the attention metrics,
-``topk_overlap_metrics`` and ``attention_entropy_np``, come with the
-localization slice, ROADMAP.md A6):
+Port of ``gloria_tpu.training.metrics``:
 
 - ``binary_auroc`` / ``binary_average_precision``: row-batched over the
   last axis, ties ranked as the JAX package ranks them (average ranks; a
@@ -17,7 +15,14 @@ localization slice, ROADMAP.md A6):
   it needs no sklearn;
 - ``dice_score``: the reference's ``get_dice``, an empty truth mask scoring
   1 when the prediction is empty too and 0 otherwise;
-  ``dice_per_sample`` gives the per-sample values it averages.
+  ``dice_per_sample`` gives the per-sample values it averages;
+- ``topk_overlap_metrics``: precision, recall, F1 and IoU of the top
+  ``fraction`` of pixels per row, with the reference's strict ``>`` against
+  the (k+1)-th largest score; ``attention_entropy_np``;
+- ``roc_curve`` / ``precision_recall_curve``: one row's curves in numpy,
+  equal to sklearn's functions of the same names (defaults:
+  ``drop_intermediate`` on for the ROC, off for precision-recall), which
+  the JAX package calls for the localization artifacts.
 """
 
 from __future__ import annotations
@@ -106,3 +111,77 @@ def dice_score(probability, truth, threshold: float = 0.5) -> float:
     if len(truth) == 0:
         return 0.0
     return float(dice_per_sample(probability, truth, threshold).mean())
+
+
+def topk_overlap_metrics(scores, labels, fraction: float, *, sorted_desc=None) -> dict:
+    """Threshold each row of ``scores`` [..., P] at its top ``fraction`` of
+    pixels: ``k = int(P·fraction)`` (k = 0 predicts nothing), the threshold
+    is the (k+1)-th largest score and a pixel is predicted when it is
+    strictly above it (under ties, fewer than k).  Returns precision,
+    recall, f1 and iou [...] against ``labels``.  ``sorted_desc``, each
+    row sorted descending, lets several fractions share one sort."""
+    s = _rows(scores)
+    l = _rows(labels).to(s.dtype)
+    P = s.shape[-1]
+    k = int(P * fraction)
+    if sorted_desc is None:
+        sorted_desc = -torch.sort(-s, dim=-1).values
+    thresh = sorted_desc.reshape(-1, P)[:, k : k + 1]
+    pred = (s > thresh).to(s.dtype)
+    tp = (pred * l).sum(-1)
+    fp = (pred * (1 - l)).sum(-1)
+    fn = ((1 - pred) * l).sum(-1)
+    precision = tp / (tp + fp).clamp_min(1e-12)
+    recall = tp / (tp + fn).clamp_min(1e-12)
+    f1 = 2 * precision * recall / (precision + recall).clamp_min(1e-12)
+    iou = tp / (tp + fp + fn).clamp_min(1e-12)
+    shape = torch.as_tensor(scores).shape[:-1]
+    return {"precision": precision.reshape(shape), "recall": recall.reshape(shape),
+            "f1": f1.reshape(shape), "iou": iou.reshape(shape)}
+
+
+def attention_entropy_np(attn: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    p = np.maximum(attn, eps)
+    return -(p * np.log(p)).sum(-1)
+
+
+def _confusion_at_thresholds(y_true, y_score):
+    """sklearn's ``confusion_matrix_at_thresholds`` without weights: the
+    false and true positives (float64) above each distinct score, from the
+    highest down, and those scores."""
+    y_true = np.asarray(y_true).reshape(-1)
+    y_score = np.asarray(y_score).reshape(-1)
+    order = np.argsort(-y_score, kind="stable")
+    y_score, y_true = y_score[order], (y_true[order] == 1).astype(np.float64)
+    idx = np.r_[np.nonzero(np.diff(y_score))[0], y_true.size - 1]
+    tps = np.cumsum(y_true)[idx]
+    fps = 1 + idx.astype(np.float64) - tps
+    return fps, tps, y_score[idx]
+
+
+def roc_curve(y_true, y_score):
+    """sklearn's ``roc_curve`` (binary 0/1 labels, no weights,
+    ``drop_intermediate=True``): (fpr, tpr, thresholds), starting at
+    (0, 0) with threshold inf; fpr (tpr) is NaN without a negative
+    (positive) label."""
+    fps, tps, thresholds = _confusion_at_thresholds(y_true, y_score)
+    if fps.shape[0] > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True]
+        fps, tps, thresholds = fps[keep], tps[keep], thresholds[keep]
+    tps, fps = np.r_[0.0, tps], np.r_[0.0, fps]
+    thresholds = np.r_[np.inf, thresholds.astype(np.float64)]
+    fpr = fps / fps[-1] if fps[-1] > 0 else np.full(fps.shape, np.nan)
+    tpr = tps / tps[-1] if tps[-1] > 0 else np.full(tps.shape, np.nan)
+    return fpr, tpr, thresholds
+
+
+def precision_recall_curve(y_true, y_score):
+    """sklearn's ``precision_recall_curve`` (binary 0/1 labels, no weights,
+    ``drop_intermediate=False``): (precision, recall, thresholds), recall
+    decreasing, ending at (1, 0); recall is 1 throughout without a positive
+    label."""
+    fps, tps, thresholds = _confusion_at_thresholds(y_true, y_score)
+    ps = tps + fps
+    precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
+    recall = tps / tps[-1] if tps[-1] != 0 else np.ones_like(tps)
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thresholds[::-1]

@@ -17,7 +17,10 @@ every gradient, as in JAX.  Not ported yet, and refused by
 :func:`make_pretrain_steps`: gradient accumulation, several steps per
 dispatch and training the image transformer; ``calc_loss`` refuses the
 flat-attention ablation losses.  A batch with ``segmentation_labels``
-trains the attention-supervision term when the config weights it.
+trains the attention-supervision term when the config weights it.  With
+``return_attn`` (the localization callbacks), the train step also returns
+the attention and the per-pair similarities, detached, as the eval step
+always does.
 """
 
 from __future__ import annotations
@@ -94,23 +97,44 @@ def _dropout_generator(seed: int, step: int, device: torch.device) -> torch.Gene
     return torch.Generator(device=device).manual_seed((seed << 32) + step)
 
 
-def loss_and_grads(model: GLoRIA, batch: dict, generator: torch.Generator | None = None):
+@torch.no_grad()
+def attention_outputs(model: GLoRIA, batch: dict, img_l, img_g, txt_l, txt_g, attn) -> dict:
+    """The host-only metrics of a step: the diagonal attention maps
+    (``_attn`` [B, W, R]) and the per-pair eval-path similarities
+    (``_local_sims``, ``_global_sims`` [B], temperatures 4 and 5 as the
+    reference's eval), all detached."""
+    return {
+        "_attn": attn.detach(),
+        "_local_sims": gloria_loss.local_similarities_eval_diag(
+            img_l.detach(), txt_l.detach(), batch["cap_lens"], temp1=4.0, temp2=5.0,
+            sink=model.no_attn_vec),
+        "_global_sims": gloria_loss.global_similarities(img_g.detach(), txt_g.detach()).diagonal(),
+    }
+
+
+def loss_and_grads(model: GLoRIA, batch: dict, generator: torch.Generator | None = None,
+                   return_attn: bool = False):
     """Train-mode forward, ``calc_loss`` and the backward pass on a batch
     already on the model's device.  Returns (metrics, gradients in the
     order of ``model.parameters()``); a parameter the loss does not reach
-    (BERT's pooler) gets zeros, as in JAX."""
+    (BERT's pooler) gets zeros, as in JAX.  ``return_attn`` adds
+    :func:`attention_outputs` to the metrics."""
     params = list(model.parameters())
     model.train()
     img_l, img_g, txt_l, txt_g, grid = model(batch, generator=generator)
-    loss, metrics, _ = model.calc_loss(img_l, img_g, txt_l, txt_g, batch["cap_lens"], grid,
-                                       batch.get("segmentation_labels"))
+    loss, metrics, attn = model.calc_loss(img_l, img_g, txt_l, txt_g, batch["cap_lens"], grid,
+                                          batch.get("segmentation_labels"))
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if gr is None else gr for gr, p in zip(grads, params)]
     device = params[0].device
-    return {k: torch.as_tensor(v, device=device).detach() for k, v in metrics.items()}, grads
+    out = {k: torch.as_tensor(v, device=device).detach() for k, v in metrics.items()}
+    if return_attn:
+        out.update(attention_outputs(model, batch, img_l, img_g, txt_l, txt_g, attn))
+    return out, grads
 
 
-def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, Callable]:
+def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer,
+                        return_attn: bool = False) -> tuple[Callable, Callable]:
     """Returns (train_step(state, batch) -> (state, metrics),
     eval_step(state, batch) -> metrics).
 
@@ -120,8 +144,9 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
     the collate's host-only ``_`` keys.  Metrics are 0-d tensors on the
     model's device: loss, local_loss0/1, global_loss0/1, no_attn_loss and
     attn_seg_loss (when configured),
-    grad_norm and, with the non-finite guard on, nonfinite_steps.  The
-    train step updates ``state`` in place and returns it."""
+    grad_norm and, with the non-finite guard on, nonfinite_steps; with
+    ``return_attn``, also :func:`attention_outputs` of the train-mode
+    forward.  The train step updates ``state`` in place and returns it."""
     _refuse_unported(model.cfg)
     params = list(model.parameters())
     trainable = optimizer.select(params)
@@ -133,7 +158,8 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
         b = to_device(batch, device)
         old_stats = [s.clone() for s in bn_stats] if optimizer.skip_nonfinite else None
         metrics, grads = loss_and_grads(
-            model, b, generator=_dropout_generator(state.seed, state.step, device))
+            model, b, generator=_dropout_generator(state.seed, state.step, device),
+            return_attn=return_attn)
         metrics["grad_norm"] = global_norm(grads)
         grads = optimizer.select(grads)
         norm = metrics["grad_norm"] if optimizer.trainable is None else global_norm(grads)
@@ -153,19 +179,12 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer) -> tuple[Callable, 
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
-        """calc_loss in eval mode, plus the diagonal attention maps (``_attn``)
-        and the per-pair eval-path similarities (``_local_sims``,
-        ``_global_sims``, temperatures 4 and 5 as the reference's eval)."""
+        """calc_loss in eval mode, plus :func:`attention_outputs`."""
         model.eval()
         b = to_device(batch, params[0].device)
         img_l, img_g, txt_l, txt_g, grid = model(b)
         _, metrics, attn = model.calc_loss(img_l, img_g, txt_l, txt_g, b["cap_lens"], grid,
                                            b.get("segmentation_labels"))
-        metrics = dict(metrics)
-        metrics["_attn"] = attn
-        metrics["_local_sims"] = gloria_loss.local_similarities_eval_diag(
-            img_l, txt_l, b["cap_lens"], temp1=4.0, temp2=5.0, sink=model.no_attn_vec)
-        metrics["_global_sims"] = gloria_loss.global_similarities(img_g, txt_g).diagonal()
-        return metrics
+        return dict(metrics) | attention_outputs(model, b, img_l, img_g, txt_l, txt_g, attn)
 
     return train_step, eval_step

@@ -578,9 +578,16 @@ def test_data_module_batches_match_jax(monkeypatch, tmp_path, dataset):
                                       for k, v in r.items()})
 
 
-def test_data_module_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        tdm.build_data_module(TConfig(_module_cfg("imagenome")), device="cpu")
+def test_data_module_refusals(monkeypatch, tmp_path):
+    from gloria_tpu_torch.data.mimic import ImaGenomeDataModule
+    from test_torch_port_grounding import write_mirror
+
+    mirror = write_mirror(tmp_path, n_dicoms=10)
+    cfg = TConfig(_module_cfg("imagenome"))
+    cfg.set_path("data.mimic_cxr_download_directory", mirror["mimic"])
+    cfg.set_path("data.imagenome_download_directory", mirror["imagenome"])
+    dm = tdm.build_data_module(cfg, device="cpu")  # ported: it builds
+    assert isinstance(dm, ImaGenomeDataModule) and len(dm.dataset("train")) > 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdm.build_data_module(TConfig(_module_cfg()))

@@ -387,20 +387,14 @@ def test_load_gloria_serves_a_port_checkpoint(tmp_path):
 REFUSALS = [  # (config path → value, CLI flags, ROADMAP.md item)
     ({"lightning.trainer.precision": 16}, [], "A1.2"),
     ({"lightning.trainer.precision": "bf16"}, [], "A1.2"),
-    ({"train.nvis": 8}, [], "A6"),
-    ({"train.nvis": 8}, ["--profile", "2"], "A6"),
-    ({"lightning.evaluate_localization": {"eval_attn_overlay_mode": "upsample"}}, [], "A6"),
-    ({"lightning.weight_instances_by_localization": {"temp": 0.2}}, [], "A6"),
+    ({"train.nvis": 8}, [], "A6.1"),
+    ({"train.nvis": 8}, ["--profile", "2"], "A6.1"),
     ({}, ["--fsdp", "2"], "A7"),
     ({}, ["--tp", "2"], "A7"),
     ({}, ["--multihost"], "A7"),
     ({}, ["--accumulate_grad_batches", "2"], "A1.8"),
     ({}, ["--steps_per_dispatch", "2"], "A1.8"),
     ({}, ["--loss_chunk", "8"], "A1.8"),
-    ({}, ["--randomize_reports"], "A6"),
-    ({}, ["--swap_left_right"], "A6"),
-    ({}, ["--mask_mode", "word"], "A6"),
-    ({}, ["--generate_sent"], "A6"),
     ({}, ["--attention_entropy_loss_weight", "1.0"], "A1.6"),
 ]
 
@@ -417,6 +411,56 @@ def test_driver_refuses_unported_options(tmp_path, overrides, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         run.main(cfg, args, device="cpu")
     assert not list(tmp_path.iterdir())  # refused before anything was written
+
+
+GROUNDING_OPTIONS = [  # the options the grounding slice ported: (config path → value, flags)
+    ({"lightning.evaluate_localization": {"eval_attn_overlay_mode": "upsample"}}, []),
+    ({"lightning.weight_instances_by_localization": {"temp": 0.2}}, []),
+    ({}, ["--randomize_reports"]),
+    ({}, ["--swap_left_right"]),
+    ({}, ["--mask_mode", "word"]),
+    ({}, ["--generate_sent"]),
+]
+
+
+@pytest.mark.parametrize("overrides,flags", GROUNDING_OPTIONS,
+                         ids=[f"{'+'.join(list(o) + f)}" for o, f in GROUNDING_OPTIONS])
+def test_driver_passes_grounding_options(tmp_path, overrides, flags):
+    """The localization callbacks and the ImaGenome data ablations pass the
+    refusals and reach the ``imagenome`` data module built from the config
+    (on a synthetic mirror): a flag sets its dataset's option, a callback
+    is built around that module's train loader."""
+    from test_torch_port_grounding import write_mirror
+
+    from gloria_tpu_torch.data.data_module import build_data_module
+    from gloria_tpu_torch.training.localization import (EvaluateLocalization,
+                                                        WeightInstancesByLocalization)
+
+    mirror = write_mirror(tmp_path / "mirror", n_dicoms=10)
+    cfg = Config(json.loads(json.dumps(PARITY_CFG)))
+    for path, value in {**overrides, "data.dataset": "imagenome",
+                        "data.mimic_cxr_download_directory": mirror["mimic"],
+                        "data.imagenome_download_directory": mirror["imagenome"]}.items():
+        cfg.set_path(path, value)
+    args = run.get_parser().parse_args(["-c", "unused.yaml", "--train", *flags])
+    run.apply_overrides(cfg, args)
+    cfg.output_dir = str(tmp_path / "out")
+    run.refuse_unported(cfg, args)  # no error
+    dm = build_data_module(cfg, device="cpu")
+    ds = dm.dataset("train")
+    callbacks, loader = run.localization_callbacks(cfg, dm)
+    if flags:
+        option = {"--randomize_reports": "randomize_reports", "--swap_left_right": "swap_left_right",
+                  "--generate_sent": "generate_sent", "--mask_mode": "text_masker"}[flags[0]]
+        assert getattr(ds, option) and not callbacks
+        return
+    (cb,) = callbacks
+    if "lightning.evaluate_localization" in overrides:
+        assert isinstance(cb, EvaluateLocalization) and loader is None
+        assert cb.save_dir == Path(cfg.output_dir) / "localization"
+    else:
+        assert isinstance(cb, WeightInstancesByLocalization) and cb.loader is loader
+        assert len(cb.scores) == len(ds) == len(loader.dataset)
 
 
 TASK_OPTIONS = [  # the options the downstream-task slice ported: (config path → value, flags)

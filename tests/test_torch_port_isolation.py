@@ -1,7 +1,9 @@
-"""The port stands alone: it imports no JAX, nothing of ``gloria_tpu`` and no
-PyYAML (absent on the card's machine; the port reads configs itself), its
-entry points refuse to pick the CPU on their own, and ``chip_smoke.py`` fails
-where there is no card or no checkout around it."""
+"""The port stands alone: it imports no JAX, nothing of ``gloria_tpu``, no
+PyYAML (absent on the card's machine; the port reads configs itself) and no
+sklearn (it computes its curves itself); cv2, pandas and spaCy only inside
+the functions that use them; its entry points refuse to pick the CPU on
+their own, and ``chip_smoke.py`` fails where there is no card or no checkout
+around it."""
 
 import ast
 import os
@@ -19,7 +21,8 @@ from gloria_tpu_torch.configs import Config
 from gloria_tpu_torch.models.gloria_model import init_gloria
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "gloria_tpu", "yaml")
+FORBIDDEN = ("jax", "flax", "gloria_tpu", "yaml", "sklearn")
+LAZY = ("cv2", "pandas", "spacy")  # imported inside the functions that use them
 
 
 def _port_files():
@@ -42,6 +45,32 @@ def test_static_scan_imports_no_jax_or_gloria_tpu():
     offenders = [(str(p.relative_to(ROOT)), m) for p in files for m in _imported_roots(p)
                  if m in FORBIDDEN]
     assert offenders == []
+
+
+def test_static_scan_imports_cv2_pandas_spacy_only_inside_functions():
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        for node in top:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            offenders += [(str(path.relative_to(ROOT)), n) for n in names
+                          if n.split(".")[0] in LAZY]
+    assert offenders == []
+
+
+def test_grounding_modules_import_without_pandas_cv2_or_spacy():
+    code = ("import sys; sys.modules.update(cv2=None, pandas=None, spacy=None, sklearn=None); "
+            "import gloria_tpu_torch.data.mimic, gloria_tpu_torch.data.text_masking, "
+            "gloria_tpu_torch.training.localization, gloria_tpu_torch.utils.viz, "
+            "gloria_tpu_torch.run; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gloria_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_import_leaves_jax_out_of_sys_modules():
