@@ -150,9 +150,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    val run reproduces the finetune run's test rows; the K1 and K2 launches
    inside each run (K1 a train and an eval step, K2 a train step); each
    run's wall time and split; the phase's seconds.
-13. one ``{"kernels": [...]}`` line (``launches_by_path`` with ``tasks``
-   and ``grounding`` entries for every kernel, K1 and K2 also with their
-   ``grounding_*`` numbers), then the ``{"ok": true, ...}`` line.
+13. bf16 step — phase 6's model (seed 0, the same weights) built with
+   ``init_gloria(cfg, dtype=torch.bfloat16)``: the towers compute in bf16
+   on f32 parameters, the local loss in f32.  Phase 6's batch of 48 (the
+   same seed), one warm-up step, then five ``train_step``s timed with CUDA
+   events, the launch counts read around exactly those five: one K1 and
+   one K2 launch a step, their words and regions f32 forward and backward;
+   losses and grad_norm finite; every parameter and running statistic
+   still f32 after the steps.  Step time, pairs/s, peak memory and the
+   forward / backward / optimizer split beside phase 6's f32 figures.
+   Then one B=8 step (dropout 0, phase 7's batch) in bf16 on the card and
+   on the CPU, and in f32 on the CPU: the loss, grad_norm and every
+   gradient (in L2) of the card's bf16 step held to the CPU's bf16 step
+   within twice the CPU's own bf16-to-f32 distance in the same measure
+   plus phase 7's tolerance (BF16_SPREAD); both distances printed.
+14. one ``{"kernels": [...]}`` line (``launches_by_path`` with ``tasks``,
+   ``grounding`` and ``bf16_train`` entries for every kernel, K1 and K2
+   also with their ``grounding_*`` numbers), then the ``{"ok": true, ...}``
+   line.
 """
 
 from __future__ import annotations
@@ -211,6 +226,16 @@ STEP_BACKBONE_L2_TOL = 3e-2
 # and 1.9x.  So each tensor is held in relative L2, with the same 1e-6
 # floor (x sqrt(n)), at about 3x the card's worst.
 STEP_TEXT_L2_TOL = 5e-3
+# Phase 13, card bf16 vs CPU bf16 (B=8, dropout 0): both round where the
+# policy says, each from its own f32 sums, so each carries its own bf16
+# rounding error.  If the card's bf16 result is no further from the f32
+# result than the CPU's is (d), the triangle inequality puts the two bf16
+# results within 2 d of each other (+ the f32 tolerance between the
+# devices).  A bound of 1 d failed on the card (H100, 700 W): the query
+# and key biases of the attention, whose exact gradient is 0, are rounding
+# noise, and two draws of that noise lie ~sqrt(2) d apart (max|diff| up to
+# 2.09 d, 1.57 of that bound), as did one LayerNorm weight (1.12).
+BF16_SPREAD = 2.0
 BACKBONE = "img_encoder.model."
 TRAIN_BATCH = 48
 TRAIN_STEPS = 5
@@ -833,6 +858,182 @@ def phase_card_vs_cpu() -> None:
     cpu = train.loss_and_grads(cpu_model, train.to_device(raw, torch.device("cpu")))
     compare_card_cpu(gpu, cpu, [n for n, _ in cpu_model.named_parameters()],
                      "card vs cpu", time.perf_counter() - t0)
+
+
+def compare_bf16_card_cpu(card: tuple, cpu: tuple, cpu_f32: tuple, names: list[str],
+                          seconds: float) -> None:
+    """Phase 13's held comparison: the card's bf16 step (metrics, gradients)
+    against the CPU's bf16 step.  Each distance is bounded by BF16_SPREAD
+    times the CPU's own bf16-to-f32 distance in the same measure plus phase
+    7's f32 tolerance: loss and grad_norm by |diff| (+ STEP_LOSS_RTOL /
+    STEP_GRAD_NORM_RTOL relative); every gradient in L2 (+
+    STEP_BACKBONE_L2_TOL ||g|| for the ResNet's, STEP_GRAD_TOL ||g|| for the
+    others, + 1e-6 sqrt(n))."""
+    from gloria_tpu_torch.training import optim
+
+    (gm, gg), (cm, cg), (fm, fg) = card, cpu, cpu_f32
+    rows = []  # (distance / bound, what, card-vs-CPU bf16, CPU bf16-vs-f32, bound)
+
+    def hold(what: str, d_card: float, d_ref: float, tol: float) -> None:
+        bound = BF16_SPREAD * d_ref + tol
+        rows.append((d_card / bound, what, d_card, d_ref, bound))
+
+    loss = float(cm["loss"])
+    hold("loss", abs(float(gm["loss"]) - loss), abs(loss - float(fm["loss"])),
+         STEP_LOSS_RTOL * abs(loss))
+    norms = [float(optim.global_norm(g)) for g in (gg, cg, fg)]
+    hold("grad_norm", abs(norms[0] - norms[1]), abs(norms[1] - norms[2]),
+         STEP_GRAD_NORM_RTOL * norms[1])
+    for name, a, b, f in zip(names, gg, cg, fg):
+        rel = STEP_BACKBONE_L2_TOL if name.startswith(BACKBONE) else STEP_GRAD_TOL
+        hold(name, float((a.cpu() - b).norm()), float((b - f).norm()),
+             rel * float(b.norm()) + 1e-6 * b.numel() ** 0.5)
+    rows.sort(reverse=True)
+    log(f"[bf16 card vs cpu] one B=8 step ({seconds:.1f} s): loss {float(gm['loss']):.6f} "
+        f"(card bf16) vs {loss:.6f} (CPU bf16) vs {float(fm['loss']):.6f} (CPU f32); "
+        f"grad_norm {norms[0]:.5f} vs {norms[1]:.5f} vs {norms[2]:.5f}")
+    log(f"[bf16 card vs cpu] {len(rows)} quantities; the worst by card-vs-CPU-bf16 distance / "
+        f"({BF16_SPREAD} x the CPU's bf16-vs-f32 distance + phase 7's tolerance), gradients in "
+        "L2:")
+    for ratio, what, d_card, d_ref, bound in rows[:6]:
+        log(f"[bf16 card vs cpu]   {what}: card vs CPU bf16 {d_card:.3e}, CPU bf16 vs f32 "
+            f"{d_ref:.3e}, bound {bound:.3e}, ratio {ratio:.3f}")
+    once = max((d_card / (bound - (BF16_SPREAD - 1) * d_ref), what)
+               for _, what, d_card, d_ref, bound in rows)
+    log(f"[bf16 card vs cpu] with 1 x the CPU's distance instead of {BF16_SPREAD}, the worst "
+        f"ratio would be {once[0]:.3f} ({once[1]})")
+    for ratio, what, *_ in rows:
+        check(ratio <= 1.0, f"bf16 card vs cpu: {what} within {BF16_SPREAD} x the CPU's "
+                            "bf16-vs-f32 distance + phase 7's tolerance")
+
+
+def phase_bf16(card: str, f32: dict) -> dict:
+    """Phase 13: the pretrain step with the towers in bf16; returns its
+    numbers.  ``f32`` is phase 6's result, printed beside them."""
+    import torch
+
+    from gloria_tpu_torch.data.synthetic import make_synthetic_batch
+    from gloria_tpu_torch.experiments import fused_bn
+    from gloria_tpu_torch.models.gloria_model import init_gloria
+    from gloria_tpu_torch.models.norm import BatchNorm2d
+    from gloria_tpu_torch.ops import local_sim
+    from gloria_tpu_torch.training import optim, train
+
+    bf16, f32_dtype = torch.bfloat16, torch.float32
+    t_phase = time.perf_counter()
+    cfg = pretrain_config(dropout=0.1)
+    model = init_gloria(cfg, seed=0, dtype=bf16)
+    model.img_encoder.to(memory_format=torch.channels_last)
+    opt = optim.make_optimizer(cfg, grad_clip=cfg.lightning.trainer.gradient_clip_val)
+    state = train.create_train_state(model, opt, seed=0, device="cuda")
+    train_step, _ = train.make_pretrain_steps(model, opt)
+    raw = make_synthetic_batch(batch_size=TRAIN_BATCH, num_tokens=97, imsize=224,
+                               vocab_size=28996, seed=0)
+    batch = train.to_device(raw, torch.device("cuda"))
+    state, _ = train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+
+    # the operands the local-similarity route receives, recorded by dtype only
+    operands = set()
+    fwd, bwd = local_sim._similarities, local_sim._similarities_bwd
+
+    def record_fwd(words, regions, *args, **kw):
+        operands.add(("fwd", words.dtype, regions.dtype))
+        return fwd(words, regions, *args, **kw)
+
+    def record_bwd(words, regions, mask, g, *args, **kw):
+        operands.add(("bwd", words.dtype, regions.dtype, g.dtype))
+        return bwd(words, regions, mask, g, *args, **kw)
+
+    local_sim._similarities, local_sim._similarities_bwd = record_fwd, record_bwd
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    try:
+        local_sim.launches = local_sim.launches_bwd = 0  # ---- bf16 train path starts ----
+        fused_bn.launches_fwd = fused_bn.launches_bwd = 0  # the path runs neither
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            state, m = train_step(state, batch)
+            metrics.append(m)
+        end.record()
+        torch.cuda.synchronize()
+        launches = (local_sim.launches, local_sim.launches_bwd)  # ---- bf16 train path ends
+        fused_launches = {"fwd": fused_bn.launches_fwd, "bwd": fused_bn.launches_bwd}
+    finally:
+        local_sim._similarities, local_sim._similarities_bwd = fwd, bwd
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"[bf16] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+        check(all(np.isfinite(v) for v in vals.values()), f"bf16 step {i + 1}: metrics finite")
+        check(vals["nonfinite_steps"] == 0, f"bf16 step {i + 1}: no step skipped")
+    log(f"[bf16] launches over the {TRAIN_STEPS} steps: local_sim_fwd {launches[0]}, "
+        f"local_sim_bwd {launches[1]}; operands {sorted(map(str, operands))}")
+    check(launches == (TRAIN_STEPS, TRAIN_STEPS), "bf16: one K1 and one K2 launch per train step")
+    check(operands == {("fwd", f32_dtype, f32_dtype), ("bwd", f32_dtype, f32_dtype, f32_dtype)},
+          "bf16: K1 and K2 receive f32 words and regions")
+    check(all(p.dtype == f32_dtype for p in model.parameters()), "bf16: parameters stay f32")
+    check(all(b.dtype == f32_dtype for m in model.modules() if isinstance(m, BatchNorm2d)
+              for b in (m.running_mean, m.running_var)), "bf16: BatchNorm statistics stay f32")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.train()
+    imgs, caps = batch["imgs"], batch["cap_lens"]
+    parts = {  # as phase 6 times them
+        "image tower fwd": lambda: model.image_encoder_forward(imgs),
+        "text tower fwd": lambda: model.text_encoder_forward(
+            batch["caption_ids"], batch["attention_mask"], batch["token_type_ids"],
+            batch["word_assignment"], gen),
+        "forward + calc_loss": lambda: model.calc_loss(*model(batch, gen)[:4], caps),
+        "forward + calc_loss + backward": lambda: train.loss_and_grads(model, batch, gen),
+    }
+    parts = {name: cuda_ms(fn, 2, reps=3) for name, fn in parts.items()}
+
+    def split_of(p: dict, step: float) -> dict:
+        fl, flb = p["forward + calc_loss"], p["forward + calc_loss + backward"]
+        return {"image tower fwd": p["image tower fwd"], "text tower fwd": p["text tower fwd"],
+                "forward + calc_loss": fl, "backward": flb - fl,
+                "optimizer and the rest": step - flb}
+
+    split, f32_split = split_of(parts, step_ms), split_of(f32["parts"], f32["step_ms"])
+    log(f"[bf16] step {step_ms:.2f} ms, {TRAIN_BATCH / step_ms * 1e3:.1f} pairs/s, peak "
+        f"{peak_gb:.2f} GB allocated; phase 6 (f32, this process) {f32['step_ms']:.2f} ms, "
+        f"{TRAIN_BATCH / f32['step_ms'] * 1e3:.1f} pairs/s, peak {f32['peak_gb']:.2f} GB "
+        f"(CUDA events over {TRAIN_STEPS} steps) [{card}]")
+    log("[bf16] where a step goes, bf16 vs f32 (ms; the towers, forward and backward each "
+        "timed alone, the rest is the step less both): " + ", ".join(f"{k} {v:.2f} vs {f32_split[k]:.2f}"
+                                               for k, v in split.items()) + f" [{card}]")
+    out = {"step_ms": step_ms, "peak_gb": peak_gb, "launches": launches, "split": split,
+           "fused_launches": fused_launches}
+    del model, state, batch, opt, metrics
+    torch.cuda.empty_cache()
+
+    # one B=8 step: card bf16 against CPU bf16, bounded by CPU bf16 against CPU f32
+    t0 = time.perf_counter()
+    cfg0 = pretrain_config(dropout=0.0)
+    raw = make_synthetic_batch(batch_size=8, num_tokens=97, imsize=224, vocab_size=28996, seed=1)
+    cpu_batch = train.to_device(raw, torch.device("cpu"))
+    cpu_model = init_gloria(cfg0, seed=0, dtype=bf16)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    card_step = train.loss_and_grads(gpu_model, train.to_device(raw, torch.device("cuda")))
+    torch.cuda.synchronize()
+    del gpu_model
+    t_cpu = time.perf_counter()
+    cpu_step = train.loss_and_grads(cpu_model, cpu_batch)
+    cpu_bf16_s = time.perf_counter() - t_cpu
+    names = [n for n, _ in cpu_model.named_parameters()]
+    del cpu_model
+    t_cpu = time.perf_counter()
+    cpu_f32 = train.loss_and_grads(init_gloria(cfg0, seed=0), cpu_batch)
+    log(f"[bf16 card vs cpu] CPU steps at B=8: bf16 {cpu_bf16_s:.1f} s, f32 "
+        f"{time.perf_counter() - t_cpu:.1f} s")
+    compare_bf16_card_cpu(card_step, cpu_step, cpu_f32, names, time.perf_counter() - t0)
+    del card_step, cpu_step, cpu_f32
+    torch.cuda.empty_cache()
+    log(f"[bf16] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
 
 
 def loader_config(batch_size: int, dropout: float):
@@ -2277,20 +2478,23 @@ def main() -> int:
         bwd_err, bwd_ratio = max(bwd_err, gr["k2"]["err"]), max(bwd_ratio, gr["k2"]["ratio"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+
+    # ---- 13. bf16 step: the pretrain step with the towers in bf16 ------------
+    bf = phase_bf16(card, tr)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 13. result lines -------------------------------------------------
+    # ---- 14. result lines -------------------------------------------------
     log(card)
     log(json.dumps({"kernels": [{
         "name": "local_sim_fwd", "route": "cuda",
         "source": "gloria_tpu_torch/csrc/local_sim_fwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:126",
         "launches": main_path_launches + tr["launches"][0] + ld["launches"][0]
-        + dr["launches"][0] + gr["launches"][0],
+        + dr["launches"][0] + gr["launches"][0] + bf["launches"][0],
         "launches_by_path": {"serve": main_path_launches, "train": tr["launches"][0],
                              "loader_train": ld["launches"][0], "driver": dr["launches"][0],
                              "tasks": tk["launches"]["local_sim_fwd"],
-                             "grounding": gr["launches"][0]},
+                             "grounding": gr["launches"][0], "bf16_train": bf["launches"][0]},
         "max_abs_err": worst_err, "ms": s1["ms"], "plain_ms": s1["plain_ms"],
         "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
         "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -2307,11 +2511,11 @@ def main() -> int:
         "source": "gloria_tpu_torch/csrc/local_sim_bwd.cu",
         "replaces": "gloria_tpu/ops/pallas/local_sim.py:164",
         "launches": tr["launches"][1] + ld["launches"][1] + dr["launches"][1]
-        + gr["launches"][1],
+        + gr["launches"][1] + bf["launches"][1],
         "launches_by_path": {"train": tr["launches"][1], "loader_train": ld["launches"][1],
                              "driver": dr["launches"][1],
                              "tasks": tk["launches"]["local_sim_bwd"],
-                             "grounding": gr["launches"][1]},
+                             "grounding": gr["launches"][1], "bf16_train": bf["launches"][1]},
         "max_abs_err": bwd_err, "max_err_over_tol": bwd_ratio, "ms": tr["k2_ms"],
         "plain_ms": tr["k2_plain_ms"], "bound_ms": tr["k2_bound_ms"],
         "bound_by": tr["k2_bound_by"], "bound_rate": "3xTF32: 495/3 TFLOP/s of f32 products",
@@ -2324,7 +2528,8 @@ def main() -> int:
         "replaces": f"scripts/experiments/fused_bn.py:{line}",
         "launches": launches,
         "launches_by_path": {"fused_tail": launches, "tasks": tk["launches"][f"fused_bn_{key}"],
-                             "grounding": gr["fused_launches"][key]},
+                             "grounding": gr["fused_launches"][key],
+                             "bf16_train": bf["fused_launches"][key]},
         "max_abs_err": ft["worst"][key][0], "max_err_over_tol": ft["worst"][key][1],
         "ms": ft[f"{key}_ms"], "plain_ms": ft[f"{key}_plain_ms"],
         "bound_ms": ft[f"{key}_bound_ms"], "bound_by": ft[f"{key}_bound_by"],

@@ -32,6 +32,7 @@ from .data.tokenizer import (TextProcessor, WordPieceTokenizer, load_saved_token
                              load_tokenizer)
 from .data.transforms import build_transformation, letterbox_resize, to_rgb
 from .models.gloria_model import GLoRIA
+from .models.precision import refuse_dtype
 from .ops import gloria_loss
 from .utils.device import resolve_device
 
@@ -63,7 +64,10 @@ class GloriaModel:
     reference's instance API."""
 
     def __init__(self, cfg: Config, state_dict: dict, tokenizer: WordPieceTokenizer | None = None,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
+        # the JAX GloriaModel's ``dtype`` is the served forward's compute dtype
+        # (gloria_tpu/api.py:78-83); the port serves in f32 only
+        refuse_dtype(dtype, "the served forward", "A1.2b")
         self.cfg = cfg
         self.device = resolve_device(device)
         model = GLoRIA(cfg)

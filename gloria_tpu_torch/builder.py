@@ -19,6 +19,7 @@ import torch
 from .configs import Config
 from .models.gloria_model import GLoRIA
 from .models.gloria_model import init_gloria as init_gloria_model
+from .models.precision import refuse_dtype
 from .training import optim
 from .training.checkpoints import restore_train_state
 from .training.train import TrainState, create_train_state, make_pretrain_steps
@@ -56,9 +57,10 @@ def default_pretrain_config() -> Config:
     })
 
 
-def build_gloria_model(cfg: Config, seed: int = 0) -> GLoRIA:
-    """A GLoRIA with random weights from ``torch.Generator(seed)``, on the CPU."""
-    return init_gloria_model(cfg, seed=seed)
+def build_gloria_model(cfg: Config, seed: int = 0, dtype: torch.dtype = torch.float32) -> GLoRIA:
+    """A GLoRIA with random weights from ``torch.Generator(seed)``, on the CPU,
+    computing in ``dtype`` (f32 parameters at every dtype)."""
+    return init_gloria_model(cfg, seed=seed, dtype=dtype)
 
 
 def build_optimizer(cfg: Config, model: torch.nn.Module | None = None) -> optim.Optimizer:
@@ -91,16 +93,20 @@ def accumulate_grad_batches(cfg: Config) -> int:
 
 
 def init_gloria(cfg: Config, batch: dict | None = None, seed: int = 0,
-                device: torch.device | str | None = None, return_attn: bool = False):
+                device: torch.device | str | None = None, return_attn: bool = False,
+                dtype: torch.dtype = torch.float32):
     """Model, optimizer state and steps: returns ``(model, state, train_step,
     eval_step)`` with the model on ``device`` (the card unless the caller
     names another).  ``batch`` is not needed (see the module docstring).
     ``return_attn``: the train step also returns the attention and the
-    per-pair similarities (``training.train.make_pretrain_steps``)."""
+    per-pair similarities (``training.train.make_pretrain_steps``).
+    ``dtype``: the compute dtype of the model and its steps, float32 or
+    bfloat16, as JAX's ``init_gloria(..., dtype=)``; the driver passes
+    float32 only (ROADMAP.md A1.2)."""
     if cfg.train and cfg.train.loss_chunk is not None:
         raise NotImplementedError("train.loss_chunk: the port's local loss has one route "
                                   "(queued in ROADMAP.md A1.8)")
-    model = build_gloria_model(cfg, seed=seed)
+    model = build_gloria_model(cfg, seed=seed, dtype=dtype)
     tx = build_optimizer(cfg, model)
     state: TrainState = create_train_state(model, tx, seed=seed, device=device)
     train_step, eval_step = make_pretrain_steps(model, tx, return_attn=return_attn)
@@ -108,7 +114,8 @@ def init_gloria(cfg: Config, batch: dict | None = None, seed: int = 0,
 
 
 def init_task(cfg: Config, pretrained: dict | None = None, seed: int = 0,
-              device: torch.device | str | None = None, resume_from: dict | None = None):
+              device: torch.device | str | None = None, resume_from: dict | None = None,
+              dtype: torch.dtype = torch.float32):
     """The classification or segmentation phase (``cfg.phase``): returns
     ``(task, state)`` with the task model on ``device`` (the card unless the
     caller names another).
@@ -118,9 +125,12 @@ def init_task(cfg: Config, pretrained: dict | None = None, seed: int = 0,
     task, whose weights, optimizer state and step are restored instead.
     ``model.vision.freeze_cnn`` masks the optimizer with the freeze flags,
     as the JAX driver does.  Like JAX, the tasks take one batch a dispatch:
-    ``train.steps_per_dispatch`` above 1 raises ``ValueError``."""
+    ``train.steps_per_dispatch`` above 1 raises ``ValueError``.  They compute
+    in f32, as the JAX driver builds them: another ``dtype`` raises
+    ``NotImplementedError`` (ROADMAP.md A1.2)."""
     from .training import tasks
 
+    refuse_dtype(dtype, "the task phases", "A1.2")
     phase = (cfg.phase or "").lower()
     task_cls = {"classification": tasks.ClassificationTask,
                 "segmentation": tasks.SegmentationTask}[phase]

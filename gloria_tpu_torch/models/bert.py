@@ -11,6 +11,15 @@ lie on the tensors' device.  Module names follow HF (``embeddings.LayerNorm``,
 ``encoder.layer.{i}.attention.self.query``) so reference state dicts load as
 they are; ``embeddings.position_ids`` is the persistent buffer that the
 reference's transformers pin writes into its checkpoints.
+
+``BertModel(cfg, dtype=...)`` is the compute dtype of the encoder layers
+(JAX ``bert.py``): the embeddings and their LayerNorm run in f32 and are
+cast to ``dtype`` (``:112-114``); the q/k/v, attention-output,
+intermediate and output Dense layers and the two LayerNorms of a layer
+return ``dtype``; the attention scores sum in f32 and the softmax runs in
+f32 before its cast, as does the context (``:50,61-71,83-87``); every
+hidden state is handed out in f32 and the pooler runs in f32
+(``:119-125``).
 """
 
 from __future__ import annotations
@@ -19,8 +28,9 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from .precision import LayerNorm, Linear, check_dtype, gelu, round_to, widen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +82,14 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = cfg.num_heads
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.compute_dtype = dtype
+        # JAX bert.py:50: Dense(dtype=dtype, param_dtype=float32)
+        self.query = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=dtype)
+        self.key = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=dtype)
+        self.value = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=dtype)
         self.dropout_rate = cfg.dropout_rate
 
     def forward(self, hidden, attn_bias, generator=None):
@@ -88,18 +100,24 @@ class BertSelfAttention(nn.Module):
             return x.view(B, T, H, hd).transpose(1, 2)
 
         q, k, v = split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(hd) + attn_bias
-        probs = torch.softmax(scores, dim=-1)
+        # JAX bert.py:61-67: the scores sum in f32 (preferred_element_type), the
+        # softmax runs in f32 and is cast to dtype, the context sums in f32
+        # and is cast to dtype
+        cd = self.compute_dtype
+        scores = widen(q, cd) @ widen(k, cd).transpose(-1, -2) / math.sqrt(hd) + attn_bias
+        probs = round_to(torch.softmax(scores, dim=-1), cd)
         if self.training:
             probs = dropout(probs, self.dropout_rate, generator)
-        return (probs @ v).transpose(1, 2).reshape(B, T, D)
+        ctx = (widen(probs, cd) @ widen(v, cd)).transpose(1, 2).reshape(B, T, D)
+        return round_to(ctx, cd)
 
 
 class BertSelfOutput(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        # JAX bert.py:69-71: Dense and LayerNorm(dtype=dtype, param_dtype=float32)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=dtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, compute_dtype=dtype)
         self.dropout_rate = cfg.dropout_rate
 
     def forward(self, x, residual, generator=None):
@@ -110,29 +128,31 @@ class BertSelfOutput(nn.Module):
 
 
 class BertAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self = BertSelfAttention(cfg)
-        self.output = BertSelfOutput(cfg)
+        self.self = BertSelfAttention(cfg, dtype)
+        self.output = BertSelfOutput(cfg, dtype)
 
     def forward(self, hidden, attn_bias, generator=None):
         return self.output(self.self(hidden, attn_bias, generator), hidden, generator)
 
 
 class BertIntermediate(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        # JAX bert.py:83-84: Dense(dtype=dtype), exact (erf) GELU in dtype, as HF BERT
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size, compute_dtype=dtype)
 
     def forward(self, x):
-        return F.gelu(self.dense(x))  # exact (erf) GELU, as HF BERT
+        return gelu(self.dense(x), self.dense.compute_dtype)
 
 
 class BertOutput(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        # JAX bert.py:85-87: Dense and LayerNorm(dtype=dtype, param_dtype=float32)
+        self.dense = Linear(cfg.intermediate_size, cfg.hidden_size, compute_dtype=dtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, compute_dtype=dtype)
         self.dropout_rate = cfg.dropout_rate
 
     def forward(self, x, residual, generator=None):
@@ -143,11 +163,11 @@ class BertOutput(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attention = BertAttention(cfg)
-        self.intermediate = BertIntermediate(cfg)
-        self.output = BertOutput(cfg)
+        self.attention = BertAttention(cfg, dtype)
+        self.intermediate = BertIntermediate(cfg, dtype)
+        self.output = BertOutput(cfg, dtype)
 
     def forward(self, hidden, attn_bias, generator=None):
         hidden = self.attention(hidden, attn_bias, generator)
@@ -155,9 +175,9 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
+        self.layer = nn.ModuleList(BertLayer(cfg, dtype) for _ in range(cfg.num_layers))
 
 
 class BertPooler(nn.Module):
@@ -166,17 +186,18 @@ class BertPooler(nn.Module):
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, seq):
-        return torch.tanh(self.dense(seq[:, 0]))
+        return torch.tanh(self.dense(seq[:, 0]))  # JAX bert.py:125: in f32
 
 
 class BertModel(nn.Module):
     """Returns (sequence_output [B,T,D], pooled [B,D], hidden_states [L+1,B,T,D])."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = cfg
+        self.compute_dtype = check_dtype(dtype)
         self.embeddings = BertEmbeddings(cfg)
-        self.encoder = BertEncoder(cfg)
+        self.encoder = BertEncoder(cfg, dtype)
         self.pooler = BertPooler(cfg)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, generator=None):
@@ -184,12 +205,16 @@ class BertModel(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        hidden = self.embeddings(input_ids, token_type_ids, generator)
+        # JAX bert.py:112-114: embeddings and their LayerNorm in f32, then dtype
+        cd = self.compute_dtype
+        hidden = round_to(self.embeddings(input_ids, token_type_ids, generator), cd)
         # HF-style additive attention bias in f32
         attn_bias = ((1.0 - attention_mask[:, None, None, :].float())
                      * torch.finfo(torch.float32).min)
-        states = [hidden]
+        # JAX bert.py:119-123: every hidden state and the output in f32
+        states = [widen(hidden, cd)]
         for layer in self.encoder.layer:
             hidden = layer(hidden, attn_bias, generator)
-            states.append(hidden)
+            states.append(widen(hidden, cd))
+        hidden = widen(hidden, cd)
         return hidden, self.pooler(hidden), torch.stack(states)

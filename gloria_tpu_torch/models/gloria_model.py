@@ -17,6 +17,15 @@ Port of ``gloria_tpu.models.gloria_model.GLoRIA``:
 statistics and BERT's dropout on and off; train-mode dropout draws from the
 ``generator`` given to ``forward``.
 
+``GLoRIA(cfg, dtype=torch.bfloat16)`` is the JAX ``GLoRIA(dtype=bfloat16)``
+(``gloria_model.py:116,124``): both towers compute in ``dtype`` on f32
+parameters (see :mod:`.precision`), and hand f32 embeddings to the losses.
+JAX also stores the local loss's O(B²) intermediates in ``dtype``
+(``gloria_model.py:226``, ``ops/gloria_loss.py:188-224``); the port does
+not: its local loss runs the K1/K2 kernels on f32 operands at every dtype
+(a deliberate difference, ROADMAP.md §C).  The image transformer has no
+``dtype`` here yet, and refuses a reduced one (A1.7).
+
 Module names follow the reference's torch keys (``img_encoder.model.*``,
 ``text_encoder.model.*``, ``position_embeddings.image_position_embeddings``,
 ``image_transformer.layers.{i}``, ``no_attn_vec``), so a reference state
@@ -33,6 +42,7 @@ from ..data.transforms import norm_constants
 from ..ops import gloria_loss
 from ..ops.resize import resize_maps_nearest
 from .bert import BertConfig
+from .precision import check_dtype
 from .resnet import init_weights_
 from .text_model import TextEncoder
 from .vision_model import ImageEncoder
@@ -100,8 +110,9 @@ def bert_config_from_cfg(cfg: Config) -> BertConfig:
 class GLoRIA(nn.Module):
     """``cfg`` follows the reference experiment-yaml schema (``configs/*.yaml``)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = check_dtype(dtype)
         cfg = Config(cfg)
         if cfg.model is None:
             cfg.model = Config()
@@ -116,6 +127,7 @@ class GLoRIA(nn.Module):
             aggregate_method=cfg.model.text.aggregate_method or "sum",
             norm=bool(cfg.model.text.norm),
             agg_tokens=bool(cfg.model.text.agg_tokens),
+            dtype=dtype,
         )
         self.img_encoder = ImageEncoder(
             model_name=cfg.model.vision.model_name or "resnet_50",
@@ -123,10 +135,15 @@ class GLoRIA(nn.Module):
             norm=bool(cfg.model.norm),
             input_size=299 if cfg.model.vision.encoder_input_size is None
             else (cfg.model.vision.encoder_input_size or None),
+            dtype=dtype,
         )
         self.position_embeddings = (
             PositionEmbeddings2D(cfg.model.image_position_embeddings.num, dim)
             if cfg.model.image_position_embeddings else None)
+        if cfg.model.image_transformer and dtype != torch.float32:
+            raise NotImplementedError(
+                "model.image_transformer with a reduced compute dtype: the image transformer "
+                "is not ported for training yet (queued in ROADMAP.md A1.7)")
         self.image_transformer = (
             ImageTransformer(dim, cfg.model.image_transformer.num_heads,
                              cfg.model.image_transformer.num_layers)
@@ -139,7 +156,7 @@ class GLoRIA(nn.Module):
     def image_encoder_forward(self, imgs: torch.Tensor):
         """imgs [B, H, W, 3] float (host-normalized) or uint8 (raw pixels,
         C=3 or C=1) → (img_emb_l [B, R, D], img_emb_g [B, D], (h, w))."""
-        if imgs.dtype == torch.uint8:
+        if imgs.dtype == torch.uint8:  # JAX gloria_model.py:165-171: in f32 at every dtype
             x = imgs.float()
             if x.shape[-1] == 1:  # grayscale: replicate like the host's to_rgb
                 x = x.expand(*x.shape[:-1], 3)
@@ -221,13 +238,14 @@ class GLoRIA(nn.Module):
 
 
 @torch.no_grad()
-def init_gloria(cfg: Config, seed: int = 0) -> GLoRIA:
-    """A GLoRIA with random weights drawn from ``torch.Generator(seed)``.
+def init_gloria(cfg: Config, seed: int = 0, dtype: torch.dtype = torch.float32) -> GLoRIA:
+    """A GLoRIA with random weights drawn from ``torch.Generator(seed)``,
+    computing in ``dtype`` (its weights are f32 and the same at every dtype).
 
     ``no_grad`` covers the init only: the returned model (in train mode, the
     ``nn.Module`` default) trains as it is.  The weights come from
     :func:`.resnet.init_weights_`, then the sink vector from N(0, 1)."""
-    model = GLoRIA(cfg)
+    model = GLoRIA(cfg, dtype=dtype)
     g = torch.Generator().manual_seed(seed)
     init_weights_(model, g)
     if model.no_attn_vec is not None:

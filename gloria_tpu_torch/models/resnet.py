@@ -10,6 +10,11 @@ layer4 feature and the layer3 local-feature map, or every stage's output
 for the U-Net (``return_features``).  Inputs are NCHW; the
 image encoder hands them over in ``channels_last`` memory.  DenseNet is not
 ported yet.
+
+``dtype`` is the compute dtype (JAX ``resnet.py:101-107``): the input is cast
+to it at the stem, every convolution runs in it on its f32 kernel cast at
+use, and BatchNorm returns it; the pooled feature and the layer3 map come
+back f32 (``resnet.py:132,135``).
 """
 
 from __future__ import annotations
@@ -21,23 +26,27 @@ import torch
 from torch import nn
 
 from .norm import BatchNorm2d
+from .precision import Conv2d, round_to, widen
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
+          dtype: torch.dtype = torch.float32) -> Conv2d:
+    # JAX resnet.py:101: nn.Conv(dtype=dtype, param_dtype=float32)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, groups=groups, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = BatchNorm2d(planes)
-        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride), BatchNorm2d(planes))
+        self.conv1 = _conv(inplanes, planes, 3, stride, dtype=dtype)
+        self.bn1 = BatchNorm2d(planes, dtype=dtype)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
+        self.bn2 = BatchNorm2d(planes, dtype=dtype)
+        self.downsample = (nn.Sequential(_conv(inplanes, planes, 1, stride, dtype=dtype),
+                                         BatchNorm2d(planes, dtype=dtype))
                            if downsample else None)
 
     def forward(self, x):
@@ -51,17 +60,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * self.expansion
-        self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = BatchNorm2d(width)
-        self.conv2 = _conv(width, width, 3, stride, groups)
-        self.bn2 = BatchNorm2d(width)
-        self.conv3 = _conv(width, out, 1)
-        self.bn3 = BatchNorm2d(out)
-        self.downsample = (nn.Sequential(_conv(inplanes, out, 1, stride), BatchNorm2d(out))
+        self.conv1 = _conv(inplanes, width, 1, dtype=dtype)
+        self.bn1 = BatchNorm2d(width, dtype=dtype)
+        self.conv2 = _conv(width, width, 3, stride, groups, dtype=dtype)
+        self.bn2 = BatchNorm2d(width, dtype=dtype)
+        self.conv3 = _conv(width, out, 1, dtype=dtype)
+        self.bn3 = BatchNorm2d(out, dtype=dtype)
+        self.downsample = (nn.Sequential(_conv(inplanes, out, 1, stride, dtype=dtype),
+                                         BatchNorm2d(out, dtype=dtype))
                            if downsample else None)
 
     def forward(self, x):
@@ -77,10 +87,11 @@ class ResNet(nn.Module):
     layer3 map [B, C3, h, w])."""
 
     def __init__(self, block: type, layers: Sequence[int], groups: int = 1,
-                 width_per_group: int = 64):
+                 width_per_group: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.compute_dtype = dtype
+        self.conv1 = _conv(3, 64, 7, stride=2, dtype=dtype)
+        self.bn1 = BatchNorm2d(64, dtype=dtype)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = 64, 64
         for stage, num_blocks in enumerate(layers):
@@ -91,7 +102,7 @@ class ResNet(nn.Module):
                 blocks.append(block(
                     inplanes, planes, stride=stride if i == 0 else 1,
                     downsample=(i == 0 and (stride != 1 or inplanes != out)),
-                    groups=groups, base_width=width_per_group))
+                    groups=groups, base_width=width_per_group, dtype=dtype))
                 inplanes = out
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
@@ -100,16 +111,19 @@ class ResNet(nn.Module):
         """(pooled, layer3 map), or with ``return_features`` (pooled, the
         dict of the U-Net's skips: ``input``, ``stem`` (after the ReLU,
         before the maxpool), ``layer1``-``layer4``)."""
-        stem = torch.relu(self.bn1(self.conv1(x)))
+        # JAX resnet.py:107: x.astype(dtype) at the stem
+        stem = torch.relu(self.bn1(self.conv1(round_to(x, self.compute_dtype))))
         layer1 = self.layer1(self.maxpool(stem))
         layer2 = self.layer2(layer1)
         layer3 = self.layer3(layer2)
         layer4 = self.layer4(layer3)
-        pooled = layer4.mean(dim=(2, 3))  # AdaptiveAvgPool2d(1)
+        # AdaptiveAvgPool2d(1); JAX resnet.py:132,135: the pooled feature and
+        # the layer3 map leave the backbone in f32
+        pooled = widen(layer4.mean(dim=(2, 3)), self.compute_dtype)
         if return_features:
             return pooled, {"input": x, "stem": stem, "layer1": layer1, "layer2": layer2,
                             "layer3": layer3, "layer4": layer4}
-        return pooled, layer3
+        return pooled, widen(layer3, self.compute_dtype)
 
 
 # name → (constructor kwargs, global feature dim, layer3 feature dim)
@@ -123,12 +137,12 @@ BACKBONES: dict[str, tuple[dict, int, int]] = {
 }
 
 
-def make_backbone(name: str) -> tuple[ResNet, int, int]:
+def make_backbone(name: str, dtype: torch.dtype = torch.float32) -> tuple[ResNet, int, int]:
     if name not in BACKBONES:
         raise NotImplementedError(f"backbone {name!r} is not ported (DenseNet: queued in "
                                   f"ROADMAP.md A5.1); choose from {sorted(BACKBONES)}")
     spec, feature_dim, interm_dim = BACKBONES[name]
-    return ResNet(**spec), feature_dim, interm_dim
+    return ResNet(**spec, dtype=dtype), feature_dim, interm_dim
 
 
 @torch.no_grad()

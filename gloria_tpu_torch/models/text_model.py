@@ -10,6 +10,11 @@ Parity notes:
 - with ``agg_tokens=False`` the per-token states are used directly;
 - ``last_n_layers == 1`` returns the final layer states and the tanh pooler
   output.
+
+``dtype`` is BERT's compute dtype (JAX ``text_model.py:51``); BERT hands
+its hidden states out in f32, so the layer sum, the word aggregation and
+the sentence mean run in f32 on states rounded to ``dtype``
+(``text_model.py:55-69``, ``ops/segment.py:76-79``).
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ from .bert import BertConfig, BertModel
 
 class TextEncoder(nn.Module):
     def __init__(self, bert_config: BertConfig, last_n_layers: int = 4,
-                 aggregate_method: str = "sum", norm: bool = False, agg_tokens: bool = True):
+                 aggregate_method: str = "sum", norm: bool = False, agg_tokens: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if aggregate_method not in ("sum", "mean"):
             raise ValueError(f"aggregation method not implemented: {aggregate_method}")
-        self.model = BertModel(bert_config)
+        self.model = BertModel(bert_config, dtype=dtype)
         self.last_n_layers = last_n_layers
         self.aggregate_method = aggregate_method
         self.norm = norm

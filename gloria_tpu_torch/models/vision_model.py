@@ -19,6 +19,11 @@ Input is NHWC (the JAX layout).  The permute to NCHW is a view, so the
 backbone runs in ``channels_last`` memory.  The local embedding comes back
 as ``[B, R, D]`` with R = h·w row-major, equal to the JAX package's NHWC
 ``reshape(b, h*w, d)``; the raw layer3 map stays NCHW.
+
+``ImageEncoder(dtype=...)`` is the compute dtype of the upsample and the
+backbone (JAX ``vision_model.py:48-50``); the two embedders run in f32 on
+the backbone's f32 outputs (``vision_model.py:55-57``).  The classifiers
+are the downstream tasks', which run in f32.
 """
 
 from __future__ import annotations
@@ -30,17 +35,22 @@ from ..ops.resize import resize_bilinear
 from .resnet import make_backbone
 
 
-def _upsample(x: torch.Tensor, input_size: int | None) -> torch.Tensor:
+def _upsample(x: torch.Tensor, input_size: int | None,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if input_size and x.shape[1] != input_size:
-        x = resize_bilinear(x, (input_size, input_size), align_corners=True)
+        # JAX vision_model.py:48-50: compute_dtype=dtype
+        x = resize_bilinear(x, (input_size, input_size), align_corners=True,
+                            compute_dtype=dtype)
     return x
 
 
 class ImageEncoder(nn.Module):
     def __init__(self, model_name: str = "resnet_50", output_dim: int = 768,
-                 norm: bool = False, input_size: int | None = 299):
+                 norm: bool = False, input_size: int | None = 299,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.model, feature_dim, interm_dim = make_backbone(model_name)
+        self.model, feature_dim, interm_dim = make_backbone(model_name, dtype=dtype)
+        self.compute_dtype = dtype
         self.global_embedder = nn.Linear(feature_dim, output_dim)
         self.local_embedder = nn.Conv2d(interm_dim, output_dim, 1, bias=False)
         self.norm = norm
@@ -50,7 +60,8 @@ class ImageEncoder(nn.Module):
         """x: [B, H, W, 3] normalized images → (global_emb [B, D],
         local_emb [B, R, D], (h, w)); with ``get_embeddings=False`` the raw
         (pooled feature [B, C4], layer3 map [B, C3, h, w])."""
-        global_ft, local_ft = self.model(_upsample(x, self.input_size).permute(0, 3, 1, 2))
+        global_ft, local_ft = self.model(
+            _upsample(x, self.input_size, self.compute_dtype).permute(0, 3, 1, 2))
         if not get_embeddings:
             return global_ft, local_ft
         global_emb = self.global_embedder(global_ft)

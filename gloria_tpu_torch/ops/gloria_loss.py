@@ -13,6 +13,14 @@ says: the port has no other route.  :func:`local_loss` therefore computes
 the fused form of the JAX ``local_loss(use_fused=True)``: the diagonal
 attention maps and the no-attention mass come from the O(B) aligned
 :func:`attention_fn`.
+
+Precision: :func:`local_loss` casts the words and regions to f32 where the
+JAX ``local_matching`` does (``gloria_loss.py:183-184``), and everything
+after that cast runs in f32, whatever the model's compute dtype.  JAX then
+stores the O(B²) intermediates (``raw``, the two softmaxes, ``dot``,
+``wctx_norm2``) in the model's dtype (``compute_dtype``, ``:188-224``); the
+port keeps the kernels on f32 operands instead (a deliberate difference,
+ROADMAP.md §C, bounded in ``tests/test_torch_port_bf16.py``).
 """
 
 from __future__ import annotations
@@ -98,6 +106,10 @@ def local_loss(img_regions: torch.Tensor, words: torch.Tensor, cap_lens: torch.T
     image→text and text→image cross-entropies of ``temp3 · sims``, the
     weighted mean log sink mass of the diagonal pairs (0.0 without
     ``no_attn_loss_weight``), and the diagonal attention maps."""
+    # JAX gloria_loss.py:183-184: words and regions in (at least) f32; the
+    # gradient flows back through this cast to embeddings of a reduced dtype
+    words, img_regions = (t.to(torch.promote_types(t.dtype, torch.float32))
+                          for t in (words, img_regions))
     mask = make_word_mask(cap_lens.to(words.device), words.shape[1], "train")
     ctx = prepend_sink(img_regions, sink) if sink is not None else img_regions
     sims = local_sim.fused_local_similarities(words, ctx, mask, temp1, temp2, agg)  # [B, T]

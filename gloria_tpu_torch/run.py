@@ -172,7 +172,10 @@ def refuse_unported(cfg: Config, args) -> None:
     if phase not in PHASES:
         raise ValueError(f"unknown phase {cfg.phase!r}; choose from {PHASES}")
     if str(cfg.get_path("lightning.trainer.precision")) in ("16", "bf16"):
-        refuse("lightning.trainer.precision 16 / bf16 (the bf16 compute policy; set 32)", "A1.2")
+        # the model and its steps take dtype=torch.bfloat16 (builder.init_gloria);
+        # mapping the config's precision onto it is the second half of A1.2
+        refuse("lightning.trainer.precision 16 / bf16 (the driver's precision mapping; set 32)",
+               "A1.2")
     if cfg.get_path("train.nvis"):
         refuse("train.nvis (the training-time attention plots; set null)", "A6.1")
     for key in ("attention_divergence_loss_weight", "attention_entropy_loss_weight"):

@@ -41,6 +41,7 @@ import torch
 
 from .api import EVAL_TEMP1, EVAL_TEMP2, GloriaModel, generate_chexpert_class_prompts
 from .data.transforms import center_crop, letterbox_resize, to_rgb
+from .models.precision import require_float32
 from .ops import gloria_loss
 
 
@@ -100,6 +101,7 @@ class InferenceEngine:
     """Zero-shot scoring over a loaded :class:`GloriaModel`."""
 
     def __init__(self, model: GloriaModel, classes: dict | None = None, max_batch: int = 64):
+        require_float32(model.model, "the served forward", "A1.2b")
         self.model = model
         self.max_batch = max_batch
         self._class_names: list[str] = []

@@ -18,7 +18,8 @@ gradients of the trainable parameters only, and the optimizer's update
 ``optax.multi_transform`` gives the inner chain only the trainable leaves).
 Frozen parameters get ``requires_grad=False``, so their backward never runs
 and they are never written.  One batch a step: accumulation is not ported
-yet (ROADMAP.md A1.8).
+yet (ROADMAP.md A1.8).  The tasks compute in f32, as the JAX driver builds
+them; a model with a reduced compute dtype is refused (ROADMAP.md A1.2).
 
 The encoder moves from a GLoRIA checkpoint by state-dict surgery
 (``checkpoints.extract_subtree`` / ``graft_subtree``): the whole
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from ..configs import Config
+from ..models.precision import require_float32
 from ..models.resnet import init_weights_
 from ..models.unet import ResnetUNet
 from ..models.vision_model import ImageClassifier, PretrainedImageClassifier
@@ -87,6 +89,7 @@ class SupervisedTask:
         if int(accum_steps) > 1:
             raise NotImplementedError("lightning.trainer.accumulate_grad_batches > 1 in the "
                                       "task phases is not ported yet (queued in ROADMAP.md A1.8)")
+        require_float32(model, "the task phases", "A1.2")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

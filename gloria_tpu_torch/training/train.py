@@ -21,6 +21,15 @@ trains the attention-supervision term when the config weights it.  With
 ``return_attn`` (the localization callbacks), the train step also returns
 the attention and the per-pair similarities, detached, as the eval step
 always does.
+
+Precision: the steps run at the model's compute dtype (``GLoRIA(cfg,
+dtype=...)``), train and eval alike, as JAX's steps run its module's.  The
+parameters, their gradients, ``grad_norm``, the optimizer state and the
+BatchNorm running statistics stay f32 at every dtype (JAX takes the
+gradient against its f32 params, with no loss scaling), so the update, the
+non-finite guard and the restore of the statistics are the same code;
+:func:`make_pretrain_steps` refuses a model whose parameters or buffers
+were cast instead.  ``_attn`` and the metrics come out f32.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from ..configs import Config
 from ..models.gloria_model import GLoRIA
 from ..models.norm import BatchNorm2d
+from ..models.precision import require_float32_state
 from ..ops import gloria_loss
 from ..utils.device import resolve_device
 from .optim import Optimizer, OptState, global_norm
@@ -148,6 +158,7 @@ def make_pretrain_steps(model: GLoRIA, optimizer: Optimizer,
     ``return_attn``, also :func:`attention_outputs` of the train-mode
     forward.  The train step updates ``state`` in place and returns it."""
     _refuse_unported(model.cfg)
+    require_float32_state(model)
     params = list(model.parameters())
     trainable = optimizer.select(params)
     bn_stats = [buf for m in model.modules() if isinstance(m, BatchNorm2d)
