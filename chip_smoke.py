@@ -82,11 +82,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bound's bytes and operations; K3's y3, s1 and s2 bit for bit over two
    calls (it has no atomics); totals over the 16 tails.
 10. driver — ``configs/chexpert_pretrain_config.yaml``, read by the port's
-   own config reader, at full width with the overrides set in code and
-   printed (``data.dataset: synthetic`` with 96 items a split, so that
+   own config reader, at full width and at its shipped precision (bf16:
+   the towers in bf16 on f32 parameters, K1 and K2 on f32 operands) with
+   its attention plots (``train.nvis: 8``), with the overrides set in code
+   and printed (``data.dataset: synthetic`` with 96 items a split, so that
    ``--limit_batches 2`` gives two batches of 48, and the vocabulary from
-   the corpus as in phase 8; ``precision: 32``; ``train.nvis: null``;
-   ``max_epochs: 2``; wandb disabled through the environment), written
+   the corpus as in phase 8; ``max_epochs: 2``; wandb disabled through the
+   environment), written
    with ``save_config``
    into a temporary directory (its free space printed first; deleted at the
    end), trained by ``python -m gloria_tpu_torch.run`` in subprocesses: run
@@ -96,10 +98,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    the resumed epoch's numbering, global step (4), scheduler and early
    stopping state, the manifest and ``best_ckpts.yaml``, the K1 and K2
    launches inside run A (its train steps plus its val and test eval steps,
-   and its train steps), and ``load_gloria(<A's best>)`` serving five images
-   on the card and on the CPU within phase 4's tolerance.  Each run's wall
+   and its train steps), each run's ``[run]`` precision (bfloat16), run A's
+   attention plots (``attention_maps_step1.png`` and ``step3.png``, the
+   first batch of each epoch at ``update_interval: 1000``: path, shape and
+   nonzero share), and ``load_gloria(<A's best>)`` serving five images
+   on the card and on the CPU within phase 4's tolerance (the checkpoint
+   holds f32 weights; the served forward is f32).  Each run's wall
    time and its split, pairs/s inside ``Trainer.fit``, each checkpoint
-   save's seconds and GB, and ``load_gloria``'s seconds.
+   save's seconds and GB, and ``load_gloria``'s seconds.  Then the host
+   time of one full-width plot in this process: ``AttentionPlotCallback``
+   on the config's first loader batch of 48 on the card and an ``_attn``
+   of [48, 97, 361] f32 on the card (host clock, median of 3, the card
+   idle before each), and its copies, grid and PNG encoding once each.
    The best checkpoint of run A is kept for phase 11.
 11. tasks  — the downstream tasks at full width from phase 10's best
    checkpoint, every kernel count set to 0 before and read after (the path
@@ -108,8 +118,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    frozen, BCE) and ``configs/pneumothorax_segmentation_config.yaml`` (the
    U-Net on ResNet-50 at 512², MixedLoss α=10, all trainable), each read by
    the port's config reader with the overrides printed (``data.dataset:
-   synthetic``, two batches a split; ``precision: 32``; ``max_epochs: 1``;
-   wandb off and no hub through the environment).  For each: one train step
+   synthetic``, two batches a split; ``max_epochs: 1``; wandb off and no
+   hub through the environment; their ``precision: bf16`` stays, and the
+   task phases compute in f32 at every precision, as JAX's driver builds
+   them).  For each: one train step
    on the card and on the CPU from the same grafted weights at B=2 (loss and
    per-tensor relative L2 of the gradients, TASK_LOSS_RTOL / TASK_GRAD_L2);
    the train step at the config's batch (64, 8) on the card, median of 5
@@ -126,8 +138,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    words each, many naming left or right; the split tables, the test split
    the gold set with its gold table):
    ``configs/imagenome_attn_finetune_config.yaml`` read by the port's
-   config reader with the overrides printed (``precision: 32``, ``bert_type: null``, the mirror's two
-   directories, ``max_epochs: 1``).  In this process: the imagenome data
+   config reader with the overrides printed (``bert_type: null``, the mirror's two
+   directories, ``max_epochs: 1``; the driver runs keep the shipped
+   ``precision: bf16``, while this process's steps build f32 models, so the
+   card-vs-CPU check keeps its f32 tolerances).  In this process: the imagenome data
    module's first train batch of 30 through the train step with
    ``return_attn`` (finite, ``attn_seg_loss`` > 0), K1 and K2 at the inputs
    it gave them, as in phase 6; one K1 and one K2 launch a step with and
@@ -187,6 +201,7 @@ import time
 import urllib.request
 from concurrent.futures import wait
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1498,8 +1513,6 @@ def driver_config():
         # the tokenizer first imports transformers (23 s on the card's host)
         # to look for a cached Bio_ClinicalBERT vocabulary, which is not there
         "model.text.bert_type": None,
-        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
-        "train.nvis": None,  # training-time attention plots are A6
         "lightning.trainer.max_epochs": 2,
     }
     for path, value in overrides.items():
@@ -1550,7 +1563,8 @@ def run_driver(cfg_path: Path, out: Path, *flags: str) -> dict:
 def log_run(name: str, r: dict, card: str, tag: str = "driver", batch: int = TRAIN_BATCH) -> None:
     sec = r["report"]["seconds"]
     start = r["wall_s"] - sec["main"]
-    log(f"[{tag}] run {name}: {r['wall_s']:.1f} s wall = process start, imports and exit "
+    log(f"[{tag}] run {name} at {r['report']['precision']}: {r['wall_s']:.1f} s wall = process "
+        f"start, imports and exit "
         f"{start:.1f} + CUDA init {sec['device_init']:.1f} + data module "
         f"{sec['data_module']:.1f} + model build {sec['model_build']:.1f} + fit "
         f"{sec.get('fit', 0.0):.1f} + test {sec.get('test', 0.0):.1f} s [{card}]")
@@ -1620,6 +1634,8 @@ def phase_driver(card: str, keep: Path) -> dict:
         check(launches == {"local_sim_fwd": steps + eval_steps, "local_sim_bwd": steps},
               "run A: one K1 launch a train and an eval step, one K2 launch a train step")
         out["launches"] = (launches["local_sim_fwd"], launches["local_sim_bwd"])
+        check(a["report"]["precision"] == "bfloat16", "run A computes in bf16 (precision: bf16)")
+        driver_plots(a, cfg)
         manifest = json.loads((a["dir"] / "ckpt" / "manifest.json").read_text())
         check(len(manifest["entries"]) == 2 and manifest["last"] == "step_00000004",
               "run A: manifest with both epochs' entries and last")
@@ -1670,6 +1686,8 @@ def phase_driver(card: str, keep: Path) -> dict:
             check(all(np.isfinite(float(row[k])) for k in ("train_loss", "val_loss")),
                   f"run B epoch at step {row['step']}: finite train and val losses")
         check(b2["report"]["global_step"] == 4, "the resumed run ends at global_step 4")
+        check(b1["report"]["precision"] == b2["report"]["precision"] == "bfloat16",
+              "runs B and B resumed compute in bf16")
         state = load_checkpoint_meta(b2["dir"] / "ckpt" / "step_00000004")["trainer_state"]
         val = [float(r["val_loss"]) for r in rows]
         log(f"[driver] run B resumed from {b1_last.name}: trainer_state {json.dumps(state)}")
@@ -1682,8 +1700,104 @@ def phase_driver(card: str, keep: Path) -> dict:
         out["test_loss"] = test_loss
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    out["plot_ms"] = plot_host_ms(cfg, card)
+    pairs = DRIVER_BATCHES * TRAIN_BATCH
+    for row in out["runs"]["A"]["epochs"]:
+        fit_s = float(row["epoch_time"]) - out["plot_ms"] / 1e3
+        log(f"[driver] run A epoch at step {row['step']} less its one plot (at the host time "
+            f"above): {pairs} pairs in {fit_s:.3f} s, {pairs / fit_s:.1f} pairs/s [{card}]")
     log(f"[driver] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return out
+
+
+def driver_plots(r: dict, cfg) -> None:
+    """The attention plots of a driver run (``train.nvis``): one at the first
+    batch of each epoch (``update_interval`` is above the epoch's batches),
+    named by the global step, ``nvis`` rows of 112² tiles under their word
+    bands, one tile a word of the longest caption drawn."""
+    from PIL import Image
+
+    from gloria_tpu_torch.utils.viz import FONT_MAX
+
+    every, nvis = int(cfg.train.update_interval), int(cfg.train.nvis)
+    want = [f"attention_maps_step{epoch * DRIVER_BATCHES + i + 1}.png"
+            for epoch in range(len(r["epochs"])) for i in range(0, DRIVER_BATCHES, every)]
+    got = sorted(p.name for p in r["dir"].glob("attention_maps_step*.png"))
+    log(f"[driver] attention plots (train.nvis {nvis}, update_interval {every}): {got}")
+    check(got == want, f"the attention plots at the first batch of each epoch: {want}")
+    for name in got:
+        img = np.asarray(Image.open(r["dir"] / name))
+        nonzero = float((img != 0).any(axis=-1).mean())
+        log(f"[driver] {r['dir'] / name}: shape {img.shape} {img.dtype}, {nonzero:.3f} of its "
+            "pixels not black")
+        check(img.ndim == 3 and img.shape[0] == nvis * (112 + FONT_MAX)
+              and img.shape[1] % 114 == 0 and 0 < img.shape[1] // 114 <= cfg.data.text.word_num,
+              f"{name}: {nvis} rows of 112² tiles, one a word")
+        first = [img[row * (112 + FONT_MAX) + FONT_MAX:(row + 1) * (112 + FONT_MAX), :112]
+                 for row in range(nvis)]
+        check(all((t != 0).any(axis=-1).mean() > 0.9 for t in first),
+              f"{name}: every row's first tile drawn")
+
+
+def plot_host_ms(cfg, card: str) -> float:
+    """Host time of one full-width attention plot: ``AttentionPlotCallback`` on
+    the driver config's first loader batch on the card (48 pairs) and an
+    ``_attn`` of [48, word_num, 19²] f32 on the card (the local features of
+    ResNet-50 at 299²), written to a temporary directory; the median of 3,
+    the card idle before each, the device-to-host copies included.  Then
+    its three parts once each on the same inputs: the copies, the grid
+    (``build_attention_images``: cv2 and PIL drawing) and the PNG encoding."""
+    import torch
+    from PIL import Image
+
+    from gloria_tpu_torch.data.data_module import build_data_module
+    from gloria_tpu_torch.training.plotting import AttentionPlotCallback
+    from gloria_tpu_torch.utils.viz import build_attention_images
+
+    batches = iter(build_data_module(cfg, device="cuda").train_dataloader())
+    batch = next(batches)
+    batches.close()  # stops the loader's threads
+    B, W = batch["cap_lens"].shape[0], int(cfg.data.text.word_num)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attn = torch.softmax(torch.randn(B, W, 19 * 19, device="cuda", generator=gen), -1)
+    plot_dir = Path(tempfile.mkdtemp(prefix="gloria_smoke_plot_"))
+    times = []
+    try:
+        cb = AttentionPlotCallback(cfg, output_dir=str(plot_dir))
+        trainer = SimpleNamespace(global_step=0)
+        for i in range(3):
+            trainer.global_step = i
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cb.on_train_batch_end(trainer, None, {"_attn": attn}, batch, 0)
+            times.append(time.perf_counter() - t)
+        size = (plot_dir / "attention_maps_step0.png").stat().st_size
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host = [x.cpu().numpy() for x in (attn, batch["imgs"], batch["cap_lens"])]
+        parts = {"copies": time.perf_counter() - t}
+        t = time.perf_counter()
+        grid = build_attention_images(host[1], host[0].reshape(B, W, 19, 19), [["?"] * W] * B,
+                                      host[2], nvis=int(cfg.train.nvis))
+        parts["grid"] = time.perf_counter() - t
+        t = time.perf_counter()
+        Image.fromarray(grid).save(plot_dir / "alone.png")
+        parts["PNG encoding"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(plot_dir, ignore_errors=True)
+    ms = statistics.median(times) * 1e3
+    longest = int(batch["cap_lens"][:int(cfg.train.nvis)].max())
+    log(f"[driver] one attention plot on the host: {ms:.1f} ms (median of 3: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms; {int(cfg.train.nvis)} rows of up to {longest} tiles, _attn "
+        f"{tuple(attn.shape)} f32 = {attn.numel() * 4 / 1e6:.1f} MB and the batch's images "
+        f"{tuple(batch['imgs'].shape)} {batch['imgs'].dtype} copied from the card; PNG "
+        f"{size / 1e6:.2f} MB) [{card}]")
+    log("[driver] the plot's parts, once each: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
+        + f" (grid {grid.shape}; host os.cpu_count() {os.cpu_count()}) [{card}]")
+    del batch, attn, host, grid
+    return ms
 
 
 def task_config(phase: str):
@@ -1696,7 +1810,6 @@ def task_config(phase: str):
         "data.dataset": "synthetic",  # the repository holds no CheXpert or SIIM data
         # two batches a split at the config's batch size
         "data.synthetic_size": DRIVER_BATCHES * int(cfg.train.batch_size),
-        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
         "lightning.trainer.max_epochs": 1,
     }
     for path, value in overrides.items():
@@ -1868,6 +1981,11 @@ def phase_tasks(card: str, pretrain_ckpt: Path, driver_s: float) -> dict:
             check(metric in test, f"{phase} driver: {metric} in the test results")
             check(d["report"]["launches"] == {"local_sim_fwd": 0, "local_sim_bwd": 0},
                   f"{phase} driver: no local-similarity kernel on the task path")
+            log(f"[tasks] {phase} driver: config precision "
+                f"{cfg.lightning.trainer.precision!r}, [run] precision "
+                f"{d['report']['precision']}")
+            check(d["report"]["precision"] == "float32",
+                  f"{phase} driver: the task model computes in f32 at the shipped precision")
             best = json.loads((d["dir"] / "ckpt" / "manifest.json").read_text())["last"]
             trained = load_checkpoint(d["dir"] / "ckpt" / best)[0]["model"]
             size = (d["dir"] / "ckpt" / best / "state.pt").stat().st_size
@@ -1989,7 +2107,6 @@ def grounding_config(name: str, mirror: dict):
 
     cfg = load_config(str(ROOT / GROUNDING_CONFIGS[name]))
     overrides = {
-        "lightning.trainer.precision": 32,  # bf16 is ROADMAP.md A1.2
         # the vocabulary from the corpus, as phases 8 and 10 make it
         "model.text.bert_type": None,
         # the synthetic mirror: the repository holds no MIMIC-CXR or ImaGenome data

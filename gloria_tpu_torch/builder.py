@@ -102,7 +102,7 @@ def init_gloria(cfg: Config, batch: dict | None = None, seed: int = 0,
     per-pair similarities (``training.train.make_pretrain_steps``).
     ``dtype``: the compute dtype of the model and its steps, float32 or
     bfloat16, as JAX's ``init_gloria(..., dtype=)``; the driver passes
-    float32 only (ROADMAP.md A1.2)."""
+    ``run.compute_dtype(cfg)``, bfloat16 at precision 16 or bf16."""
     if cfg.train and cfg.train.loss_chunk is not None:
         raise NotImplementedError("train.loss_chunk: the port's local loss has one route "
                                   "(queued in ROADMAP.md A1.8)")

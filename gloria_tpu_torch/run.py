@@ -17,8 +17,17 @@ each seed to its best checkpoint and is written before anything is printed.
 ``--ckpt`` warm-starts from a checkpoint of the port; with ``--resume`` it
 also restores the optimizer state, the step and the trainer's state (epoch,
 scheduler, early stopping).  ``--fused_kernel`` is accepted: the port's
-local loss always runs the K1/K2 kernels on a card.  Precision 32 is the
-only one ported: on a card the driver turns TF32 off for cuDNN and cuBLAS.
+local loss always runs the K1/K2 kernels on a card.
+
+``lightning.trainer.precision`` 16 or bf16 builds the pretrain phase's
+model at ``dtype=torch.bfloat16`` (f32 parameters and statistics, the
+local loss on f32 operands; ``models.precision``), as JAX's driver does;
+the task phases compute in f32 at every precision, as JAX's driver builds
+them (:func:`compute_dtype`).  On a card the driver turns TF32 off for
+cuDNN and cuBLAS at every precision, so what the policy keeps f32 is f32.
+``train.nvis`` saves the training-time attention plots
+(``training.plotting.AttentionPlotCallback``).  So the shipped configs run
+as shipped, apart from their data and downloaded weights.
 
 The ImaGenome grounding configs run in the pretrain phase:
 ``lightning.evaluate_localization`` scores the attention of the train
@@ -171,13 +180,6 @@ def refuse_unported(cfg: Config, args) -> None:
     phase = (cfg.phase or "pretrain").lower()
     if phase not in PHASES:
         raise ValueError(f"unknown phase {cfg.phase!r}; choose from {PHASES}")
-    if str(cfg.get_path("lightning.trainer.precision")) in ("16", "bf16"):
-        # the model and its steps take dtype=torch.bfloat16 (builder.init_gloria);
-        # mapping the config's precision onto it is the second half of A1.2
-        refuse("lightning.trainer.precision 16 / bf16 (the driver's precision mapping; set 32)",
-               "A1.2")
-    if cfg.get_path("train.nvis"):
-        refuse("train.nvis (the training-time attention plots; set null)", "A6.1")
     for key in ("attention_divergence_loss_weight", "attention_entropy_loss_weight"):
         if cfg.get_path(f"model.gloria.{key}") is not None:
             refuse(f"model.gloria.{key} (the flat-attention ablation losses)", "A1.6")
@@ -189,6 +191,19 @@ def refuse_unported(cfg: Config, args) -> None:
         refuse("--steps_per_dispatch above 1", "A1.8")
     if cfg.get_path("train.loss_chunk") is not None:
         refuse("--loss_chunk (the port's local loss has one route)", "A1.8")
+
+
+def compute_dtype(cfg: Config):
+    """The dtype the model computes in: bfloat16 for the pretrain phase
+    (the grounding configs' too) at ``lightning.trainer.precision`` 16,
+    "16" or "bf16", else float32 (JAX ``run.py:216``); float32 for the task
+    phases at every precision, whose models JAX's driver builds with no
+    dtype (``run.py:274``)."""
+    import torch
+
+    pretrain = (cfg.phase or "pretrain").lower() == "pretrain"
+    precision = str(cfg.get_path("lightning.trainer.precision") or "")
+    return torch.bfloat16 if pretrain and precision in ("16", "bf16") else torch.float32
 
 
 def localization_callbacks(cfg: Config, dm) -> tuple[list, object]:
@@ -226,6 +241,7 @@ def main(cfg: Config, args, device=None) -> dict:
     from .ops import local_sim
     from .training.checkpoints import (CheckpointManager, load_checkpoint, load_checkpoint_meta,
                                        restore_train_state)
+    from .training.plotting import AttentionPlotCallback
     from .training.tasks import LogSegmentationSamples
     from .training.trainer import ProfileTrace, Trainer
     from .utils.device import resolve_device
@@ -236,8 +252,10 @@ def main(cfg: Config, args, device=None) -> dict:
     refuse_unported(cfg, args)
     phase = (cfg.phase or "pretrain").lower()
     device = resolve_device(device if device is not None else getattr(args, "device", None))
+    dtype = compute_dtype(cfg)
     if device.type == "cuda":
-        # precision 32 is f32: no TF32 in cuDNN's convolutions or cuBLAS's products
+        # f32 is f32 at every precision: no TF32 in cuDNN's convolutions or
+        # cuBLAS's products, the f32 parts of the bf16 policy included
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.init()
@@ -269,8 +287,10 @@ def main(cfg: Config, args, device=None) -> dict:
     callbacks, extractor, task, train_loader = [], None, None, None
     if phase == "pretrain":
         callbacks, train_loader = localization_callbacks(cfg, dm)
+        if cfg.train and cfg.train.nvis:
+            callbacks.append(AttentionPlotCallback(cfg))
         model, state, train_step, eval_step = builder.init_gloria(
-            cfg, seed=seed, device=device, return_attn=bool(callbacks))
+            cfg, seed=seed, device=device, return_attn=bool(callbacks), dtype=dtype)
         if payload is not None:
             restore_train_state(state, payload, resume=resume)
         convnet = model.img_encoder
@@ -320,6 +340,7 @@ def main(cfg: Config, args, device=None) -> dict:
     results["run"] = {
         "device": str(device) if device.type != "cuda" else torch.cuda.get_device_name(device),
         "phase": phase,
+        "precision": str(dtype).removeprefix("torch."),
         "seconds": timing,
         "global_step": trainer.global_step,
         "launches": {"local_sim_fwd": local_sim.launches - launches_before[0],

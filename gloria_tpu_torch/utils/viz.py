@@ -1,13 +1,15 @@
-"""Attention overlays: a word-region attention grid brought to image size.
+"""Attention overlays and the training-time attention plots.
 
 The port's copy of the overlay part of ``gloria_tpu.utils.viz`` (the
 reference's ``normalize`` and ``pyramid_attn_overlay``), which
 ``training.localization.EvaluateLocalization`` scores against the boxes:
 ``upsample`` (bilinear), ``pyramid`` (upsample, then a heavy Gaussian blur)
 and ``windows`` (each cell spread over its receptive window, else the
-nearest cell).  The attention plots and the artifact renderer of that
-module are not ported yet (ROADMAP.md A6.1, A6.3).  cv2 is imported inside
-the functions.
+nearest cell); and the attention grid that ``training.plotting.
+AttentionPlotCallback`` saves (the reference's ``build_attention_images``):
+:func:`to_rgb`, :func:`heatmap_overlay`, :func:`build_attention_images`.
+The artifact renderer of that module is not ported yet (ROADMAP.md A6.3).
+cv2 and PIL are imported inside the functions.
 """
 
 from __future__ import annotations
@@ -76,3 +78,69 @@ ATTN_OVERLAY_MODES = {
 def get_attn_overlay(attn: np.ndarray, image_shape: tuple[int, int],
                      mode: str = "upsample", **kw) -> np.ndarray:
     return ATTN_OVERLAY_MODES[mode](attn, image_shape, **kw)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """A uint8 [H, W, 3] image: a grey image repeated over three channels, a
+    float image scaled from its own range to 0-255."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    if img.dtype != np.uint8:
+        lo, hi = img.min(), img.max()
+        img = ((img - lo) / (hi - lo + 1e-8) * 255).astype(np.uint8)
+    return img
+
+
+def heatmap_overlay(img: np.ndarray, attn: np.ndarray, alpha: float = 0.5) -> np.ndarray:
+    """A normalized attention map in the jet colormap, blended over an image."""
+    import cv2
+
+    img = to_rgb(img)
+    a = np.asarray(attn, np.float32)
+    a = (a - a.min()) / (a.max() - a.min() + 1e-8)
+    heat = cv2.applyColorMap((a * 255).astype(np.uint8), cv2.COLORMAP_JET)[:, :, ::-1]
+    if heat.shape[:2] != img.shape[:2]:
+        heat = cv2.resize(heat, img.shape[:2][::-1])
+    return (alpha * heat + (1 - alpha) * img).astype(np.uint8)
+
+
+FONT_MAX = 50  # the band above each row of tiles that holds the words
+
+
+def build_attention_images(
+    imgs: np.ndarray,           # [B, H, W, 3] normalized or uint8
+    attn_maps: np.ndarray,      # [B, W_words, h, w]
+    words: list[list[str]],
+    cap_lens,
+    nvis: int = 8,
+    rand_vis: bool = False,
+    rng: np.random.RandomState | None = None,
+) -> np.ndarray:
+    """One row for each of ``nvis`` samples (the first ones, or drawn
+    without replacement by ``rng``, else ``RandomState(0)``, with
+    ``rand_vis``): a 112² tile for each word, its attention upsampled and
+    blended over the image, with the word written above it."""
+    import cv2
+    from PIL import Image, ImageDraw
+
+    B = len(imgs)
+    nvis = min(nvis, B)
+    idxs = ((rng or np.random.RandomState(0)).choice(B, nvis, replace=False)
+            if rand_vis else np.arange(nvis))
+    max_words = int(max(cap_lens[i] for i in idxs))
+    tile = 112
+    canvas = np.zeros((nvis * (tile + FONT_MAX), max_words * (tile + 2), 3), np.uint8)
+    pil = Image.fromarray(canvas)
+    draw = ImageDraw.Draw(pil)
+    for r, i in enumerate(idxs):
+        img = cv2.resize(to_rgb(imgs[i]), (tile, tile))
+        L = int(cap_lens[i])
+        for wpos in range(min(L, max_words)):
+            tile_img = heatmap_overlay(img, upsample_attn_overlay(attn_maps[i][wpos], (tile, tile)))
+            y0 = r * (tile + FONT_MAX) + FONT_MAX
+            x0 = wpos * (tile + 2)
+            pil.paste(Image.fromarray(tile_img), (x0, y0))
+            word = words[i][wpos] if wpos < len(words[i]) else ""
+            draw.text((x0 + 2, y0 - FONT_MAX + 10), word.strip("#"), fill=(255, 255, 255))
+    return np.asarray(pil)

@@ -56,7 +56,7 @@ from gloria_tpu.ops import gloria_loss as jloss
 from gloria_tpu.ops.resize import resize_bilinear as jax_resize
 from gloria_tpu.training import optim as jax_optim
 from gloria_tpu.utils.torch_import import import_gloria
-from gloria_tpu_torch import api, builder, run, serving
+from gloria_tpu_torch import api, builder, serving
 from gloria_tpu_torch.configs import Config as TConfig
 from gloria_tpu_torch.models import precision
 from gloria_tpu_torch.models.bert import BertConfig, BertLayer, BertModel
@@ -566,11 +566,6 @@ def test_float32_model_is_the_default_bit_for_bit():
 def _bf16_refusals():
     cfg = TConfig(tiny_cfg().to_dict())
 
-    def driver():
-        c = TConfig(tiny_cfg().to_dict())
-        c.set_path("lightning.trainer.precision", "bf16")
-        run.refuse_unported(c, run.get_parser().parse_args(["-c", "unused.yaml", "--train"]))
-
     def task_builder():
         c = TConfig(tiny_cfg().to_dict())
         c.phase = "classification"
@@ -602,8 +597,7 @@ def _bf16_refusals():
     def float16():
         TGLoRIA(cfg, dtype=torch.float16)
 
-    return {"driver": (driver, NotImplementedError, "precision mapping.*ROADMAP.md A1.2\\)"),
-            "init_task": (task_builder, NotImplementedError, "task phases.*ROADMAP.md A1.2\\)"),
+    return {"init_task": (task_builder, NotImplementedError, "task phases.*ROADMAP.md A1.2\\)"),
             "task model": (task_model, NotImplementedError, "task phases.*ROADMAP.md A1.2\\)"),
             "GloriaModel": (served_forward, NotImplementedError, "served.*ROADMAP.md A1.2b"),
             "InferenceEngine": (engine, NotImplementedError, "served.*ROADMAP.md A1.2b"),

@@ -261,7 +261,31 @@ def test_driver_resume_continues_the_run(tmp_path):
     """A run stopped after epoch 1 and resumed with --resume --ckpt goes on
     with the epoch numbering, global step, scheduler, early stopping and data
     order, and its epoch 2 is the uninterrupted run's bit for bit."""
+    _resume_continues_the_run(tmp_path, precision=32)
+
+
+def test_driver_resume_continues_the_run_at_bf16(tmp_path):
+    """The same at ``precision: bf16``: the checkpoints of the bf16 run hold
+    f32 parameters and BatchNorm statistics, as JAX's do, the resumed run
+    is the uninterrupted one bit for bit, and ``load_gloria`` serves the
+    checkpoint with the f32 served forward, bit for bit as a model given
+    the same state dict."""
+    whole_dir = _resume_continues_the_run(tmp_path, precision="bf16")
+    path = whole_dir / "ckpt" / "step_00000004"
+    state = load_checkpoint(path)[0]["model"]
+    assert all(v.dtype == torch.float32 for v in state.values() if v.is_floating_point())
+    assert any(k.endswith("running_var") for k in state)
+    served = api.load_gloria(str(path), device="cpu")
+    ref = api.GloriaModel(served.cfg, state, tokenizer=served.tokenizer, device="cpu")
+    imgs = np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32)
+    txts = served.process_text(["small pleural effusion", "no acute process"])
+    np.testing.assert_array_equal(served.get_similarities(imgs, txts, "both"),
+                                  ref.get_similarities(imgs, txts, "both"))
+
+
+def _resume_continues_the_run(tmp_path, precision) -> Path:
     cfg = _tiny_cfg().to_dict()
+    cfg["lightning"]["trainer"]["precision"] = precision
     cfg["train"]["scheduler"] = {"name": "plateau", "monitor": "val_loss"}
     whole, whole_dir = _main(tmp_path, "whole", cfg, "--train", "--test")
     cfg_one = json.loads(json.dumps(cfg))
@@ -285,6 +309,9 @@ def test_driver_resume_continues_the_run(tmp_path):
     assert meta["trainer_state"]["epoch"] == 2 and meta["trainer_state"]["scheduler"]["count"] == 2
     assert meta["trainer_state"]["early_stopping"]["best"] == min(
         float(whole_rows[0]["val_loss"]), float(whole_rows[1]["val_loss"]))
+    assert whole["run"]["precision"] == resumed["run"]["precision"] == (
+        "float32" if precision == 32 else "bfloat16")
+    return whole_dir
 
 
 # ---- preemption ------------------------------------------------------------------
@@ -385,10 +412,6 @@ def test_load_gloria_serves_a_port_checkpoint(tmp_path):
 # ---- refusals ---------------------------------------------------------------------
 
 REFUSALS = [  # (config path → value, CLI flags, ROADMAP.md item)
-    ({"lightning.trainer.precision": 16}, [], "A1.2"),
-    ({"lightning.trainer.precision": "bf16"}, [], "A1.2"),
-    ({"train.nvis": 8}, [], "A6.1"),
-    ({"train.nvis": 8}, ["--profile", "2"], "A6.1"),
     ({}, ["--fsdp", "2"], "A7"),
     ({}, ["--tp", "2"], "A7"),
     ({}, ["--multihost"], "A7"),
@@ -411,6 +434,36 @@ def test_driver_refuses_unported_options(tmp_path, overrides, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         run.main(cfg, args, device="cpu")
     assert not list(tmp_path.iterdir())  # refused before anything was written
+
+
+PRECISION_AND_NVIS = [  # the options the shipped-configs slice ported: (config path → value, flags)
+    ({"lightning.trainer.precision": 16}, []),
+    ({"lightning.trainer.precision": "bf16"}, []),
+    ({"train.nvis": 8}, []),
+    ({"train.nvis": 8}, ["--profile", "2"]),
+]
+
+
+@pytest.mark.parametrize("overrides,flags", PRECISION_AND_NVIS,
+                         ids=[f"{'+'.join(list(o) + f)}" for o, f in PRECISION_AND_NVIS])
+def test_driver_passes_precision_and_nvis(tmp_path, overrides, flags):
+    """Precision 16 / bf16 and ``train.nvis`` pass the refusals: one train
+    step runs, at bf16 for the two precisions (the ``[run]`` report), and
+    with ``nvis`` it writes its attention plot."""
+    cfg = Config(json.loads(json.dumps(PARITY_CFG)))
+    for path, value in overrides.items():
+        cfg.set_path(path, value)
+    cfg.lightning.trainer.max_epochs = 1
+    args = run.get_parser().parse_args(["-c", "unused.yaml", "--train", "--limit_batches", "1",
+                                        *flags])
+    run.apply_overrides(cfg, args)
+    cfg.output_dir = str(tmp_path)
+    report = run.main(cfg, args, device="cpu")["run"]
+    bf16 = "lightning.trainer.precision" in overrides
+    assert report["precision"] == ("bfloat16" if bf16 else "float32")
+    assert report["global_step"] == 1
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == (
+        [] if bf16 else ["attention_maps_step1.png"])
 
 
 GROUNDING_OPTIONS = [  # the options the grounding slice ported: (config path → value, flags)

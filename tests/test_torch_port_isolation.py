@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX, nothing of ``gloria_tpu``, no
 PyYAML (absent on the card's machine; the port reads configs itself) and no
-sklearn (it computes its curves itself); cv2, pandas and spaCy only inside
+sklearn (it computes its curves itself); cv2, PIL, pandas and spaCy only inside
 the functions that use them; its entry points refuse to pick the CPU on
 their own, and ``chip_smoke.py`` fails where there is no card or no checkout
 around it."""
@@ -22,7 +22,7 @@ from gloria_tpu_torch.models.gloria_model import init_gloria
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "gloria_tpu", "yaml", "sklearn")
-LAZY = ("cv2", "pandas", "spacy")  # imported inside the functions that use them
+LAZY = ("cv2", "PIL", "pandas", "spacy")  # imported inside the functions that use them
 
 
 def _port_files():
